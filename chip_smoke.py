@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of nerfacc_tpu_torch's forward render path on one NVIDIA GPU.
+"""Smoke run of nerfacc_tpu_torch's render path and TensoCP training step
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,21 +10,33 @@ Phases (any failed check raises, and the script exits nonzero):
    CUDA the script stops here: it never runs on the CPU.
 2. Build: compiles the CUDA kernels of ``nerfacc_tpu_torch/csrc`` with
    ``nvcc`` into ``build/nerfacc_tpu_torch/`` and reports the seconds.
-3. Kernels vs plain twins on the card, at the render path's shapes:
-   the CP encoder at 786,432 samples for both TensoCP levels, march
-   selection at 12,288 rays x 32 groups x 64 slots (cone 0 and 0.004),
-   re-selection at 12,288 rays x 64 -> 32 slots. Median times of both.
+3. Kernels vs plain twins on the card, at the main paths' shapes: the CP
+   encoder's forward (K1), residual forward (K2) and table gradients (K3,
+   K4) at 786,432 samples for both TensoCP levels, march selection at
+   12,288 rays x 32 groups x 64 slots (cone 0 and 0.004), re-selection at
+   12,288 rays x 64 -> 32 slots. Median times of both.
 4. The render path: four 128x128 views of the procedural scene through
    ``render_image`` with the flagship TensoCP field (random weights from a
    seed), the trained 128^3 occupancy grid, the fused march and the
    two-stage visibility cull. Outputs must be finite with opacities in
-   [0, 1], every kernel must have launched, the march must match the
-   unfused march bit for bit, the render must agree with the render
-   through the plain paths, and a 16x16 crop must agree with the same
-   path run on the CPU.
+   [0, 1], every kernel of the path must have launched (and no training
+   kernel), the march must match the unfused march bit for bit, the
+   render must agree with the render through the plain paths, and a
+   16x16 crop must agree with the same path run on the CPU.
+5. The training step of ``bench.py --mode train --grid trained
+   --fused_march`` with the field's kernels: one 512-ray step on the card
+   against the same step on the CPU (loss and every gradient); 10 steps
+   of 16,384 rays from bench.py's ray stream (finite losses and
+   parameters, K2 and K4 twice and K5 once per step, step time, live
+   samples, samples/s); 10 steps on a repeated batch must lower its loss;
+   the plain twin of the whole step (no kernel); ``update_grid`` on the
+   full 128^3 grid, warm-up and sampled paths (K1), and the card against
+   the CPU on a 32^3 grid with the same cells and jitter.
+6. The ``cp_level_features`` op differentiated on its own (K1, K3).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-holds the kernels' launches, errors and times as JSON.
+holds the kernels' launches (in all and per path), errors and times as
+JSON, and the one before that the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -78,6 +91,35 @@ RENDER_ATOL, DEPTH_ATOL = 1e-3, 3e-3
 # Kernel render on the card vs the same path on the CPU: the same numerics,
 # differing only in f32 summation order and the bf16 roundings it can
 # flip: the same bounds.
+# CP table gradients (K3, K4) vs their twins: both sum the same exact f32
+# products over the batch, the kernels in atomic order, the twins in
+# cuBLAS's. A sequential f32 sum of 786,432 such terms into 128 or 512 rows
+# drifts ~2.5e-6 x max|dT| (a numpy simulation of that order): 1e-5 x
+# max|dT| per table.
+CP_GRAD_REL = 1e-5
+
+# The training step: bench.py --mode train --grid trained --fused_march at
+# full width, single-stage cull (bench.py:143-203, 276-311).
+TRAIN_RAYS = 16384
+TRAIN_STEPS = 10
+TRAIN_KW = dict(
+    scene_aabb=AABB,
+    render_step_size=5e-3,
+    max_samples_per_ray=1024,
+    coarse_stride=16,
+    probe_dilation=2,
+    probe_groups=32,
+    compact_rays_fraction=0.75,
+)
+LR = 5e-4
+CHECK_RAYS = 512  # the card-vs-CPU step
+# Card vs CPU: the heads round f32 sums taken in another order to bf16,
+# which can move a value by one bf16 step (2^-8 relative) and a density by
+# exp of that: the loss within 1e-4 relative, each parameter's gradient
+# within 1e-2 in L2 norm, grid occupancies within 5e-2 relative, and a
+# binary cell may differ only within that band of the threshold.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_L2 = 1e-4, 1e-2
+OCC_RTOL = 5e-2
 
 
 def smi_line() -> str:
@@ -193,6 +235,7 @@ def phase_kernels(dev: torch.device) -> list:
         replaces="nerfacc_tpu/ops/cp_encoder.py:173",
         max_abs_err=cp_err, ms=cp_ms, plain_ms=cp_plain_ms,
     ))
+    report += check_cp_training_kernels(dev, rng, xu)
 
     # K5: grouped slot selection + lattice
     C = SLICE_KW["coarse_stride"]
@@ -260,6 +303,88 @@ def phase_kernels(dev: torch.device) -> list:
         max_abs_err=err, ms=ms, plain_ms=pms,
     ))
     return report
+
+
+def check_cp_training_kernels(dev, rng, xu) -> list:
+    """K2, K3 and K4 against their twins at the training step's shapes:
+    786,432 samples (with u == 0 and u == G - 1 on every axis), both
+    levels, a random f32 cotangent."""
+    from nerfacc_tpu_torch.ops import (
+        cp_level_features,
+        cp_level_features_res_fwd,
+        cp_level_features_res_plain,
+        cp_level_grads,
+        cp_level_grads_plain,
+        cp_level_grads_res,
+        cp_level_grads_res_plain,
+    )
+
+    acc = {k: [0.0, 0.0, 0.0] for k in ("K2", "K3", "K4")}  # ms, plain, err
+    for g, r in ((128, 64), (512, 128)):
+        tables = [
+            torch.as_tensor(rng.randn(g, r).astype(np.float32) * 0.2,
+                            device=dev)
+            for _ in range(3)
+        ]
+        cot = torch.as_tensor(rng.randn(B_SAMPLES, r).astype(np.float32),
+                              device=dev)
+        shape = f"B={B_SAMPLES} G={g} R={r}"
+
+        feats, us = cp_level_features_res_fwd(xu, *tables)
+        want_feats, want_us = cp_level_features_res_plain(xu, *tables)
+        torch.cuda.synchronize()
+        _check_equal(f"K2 {shape} features vs K1",
+                     feats, cp_level_features(xu, *tables))
+        err = _check_close(f"K2 {shape} features", feats, want_feats, 0.0,
+                           CP_ATOL)
+        for a, (u, want) in enumerate(zip(us, want_us)):
+            _check_equal(f"K2 {shape} residual {a}", u, want)
+        timed = [(
+            "K2", "cp_level_features_res", err,
+            lambda: cp_level_features_res_fwd(xu, *tables),
+            lambda: cp_level_features_res_plain(xu, *tables),
+        )]
+
+        for key, name, fn, plain in (
+            ("K3", "cp_level_grads",
+             lambda: cp_level_grads(xu, *tables, cot),
+             lambda: cp_level_grads_plain(xu, *tables, cot)),
+            ("K4", "cp_level_grads_res",
+             lambda: cp_level_grads_res(xu, cot, *us, g),
+             lambda: cp_level_grads_res_plain(xu, cot, *us, g)),
+        ):
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            err, scale = 0.0, 0.0
+            for a, (d, w) in enumerate(zip(got, want)):
+                s = float(w.abs().max())
+                err = max(err, _check_close(f"{key} {shape} dT{a}", d, w,
+                                            0.0, CP_GRAD_REL * s))
+                scale = max(scale, s)
+            print(f"{key} {name} {shape}: max abs err {err:.3e} = "
+                  f"{err / scale:.2e} x max|dT| {scale:.3e}")
+            timed.append((key, name, err, fn, plain))
+            del got, want
+
+        for key, name, err, fn, plain in timed:
+            ms = median_ms(fn)
+            pms = median_ms(plain, 5)
+            print(f"{key} {name} {shape}: kernel {ms:.4f} ms  plain "
+                  f"{pms:.4f} ms  max_abs_err {err:.3e}")
+            a = acc[key]
+            a[0], a[1], a[2] = a[0] + ms, a[1] + pms, max(a[2], err)
+        del feats, us, want_feats, want_us, timed
+        torch.cuda.empty_cache()
+
+    names = {"K2": ("cp_level_features_res", 240),
+             "K3": ("cp_level_grads", 198), "K4": ("cp_level_grads_res", 274)}
+    return [
+        dict(name=names[k][0], route="cuda",
+             source="nerfacc_tpu_torch/csrc/cp_encoder.cu",
+             replaces=f"nerfacc_tpu/ops/cp_encoder.py:{names[k][1]}",
+             max_abs_err=acc[k][2], ms=acc[k][0], plain_ms=acc[k][1])
+        for k in ("K2", "K3", "K4")
+    ]
 
 
 def make_requests(dev: torch.device) -> list:
@@ -339,13 +464,39 @@ def _check_outputs(name, colors, opacities, depths, n) -> None:
         raise AssertionError(f"{name}: opacities outside [0, 1]")
 
 
-def phase_slice(dev: torch.device, report: list) -> None:
+def kernel_counters() -> dict:
+    """Every kernel wrapper by name: each counts its own launches."""
+    from nerfacc_tpu_torch import ops
+
+    return {name: getattr(ops, name) for name in (
+        "cp_level_features", "cp_level_features_res", "cp_level_grads",
+        "cp_level_grads_res", "fused_select_grouped", "fused_reselect")}
+
+
+def drive(path: str, fn, must_launch, must_not_launch=()):
+    """Run ``fn`` with every launch count set to 0 just before and read
+    just after; fail unless each kernel of ``must_launch`` launched and
+    none of ``must_not_launch`` did. Returns ``(fn's result, counts)``."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {name: c.launches for name, c in counters.items()}
+    print(f"launches in {path}: {counts}")
+    for name in must_launch:
+        if counts[name] < 1:
+            raise AssertionError(f"{path}: {name} never launched")
+    for name in must_not_launch:
+        if counts[name]:
+            raise AssertionError(f"{path}: {name} launched {counts[name]} "
+                                 "times (expected none)")
+    return out, counts
+
+
+def phase_slice(dev: torch.device) -> dict:
+    """The render path; returns its launch counts."""
     from nerfacc_tpu_torch import render_rays
-    from nerfacc_tpu_torch.ops import (
-        cp_level_features,
-        fused_reselect,
-        fused_select_grouped,
-    )
 
     requests = make_requests(dev)
     field, grid = make_scene(dev, use_kernel=True)
@@ -371,16 +522,13 @@ def phase_slice(dev: torch.device, report: list) -> None:
     # grows on first use)
     _serve(field, grid, requests, True)
     _serve(plain_field, grid, requests, False)
-    kernels = (cp_level_features, fused_select_grouped, fused_reselect)
-    for fn in kernels:
-        fn.launches = 0
-    outs, ms = _serve(field, grid, requests, True)
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    print(f"launches in the render of {N_VIEWS} requests: {launches}")
-    for entry in report:
-        entry["launches"] = launches[entry["name"]]
-        if entry["launches"] < 1:
-            raise AssertionError(f"{entry['name']} never launched")
+    # no gradient is taken: the training kernels K2-K4 must not run
+    (outs, ms), launches = drive(
+        f"the render of {N_VIEWS} requests",
+        lambda: _serve(field, grid, requests, True),
+        ("cp_level_features", "fused_select_grouped", "fused_reselect"),
+        ("cp_level_features_res", "cp_level_grads", "cp_level_grads_res"),
+    )
     plain_outs, plain_ms = _serve(plain_field, grid, requests, False)
 
     for i, ((o, d), out, pout) in enumerate(zip(requests, outs, plain_outs)):
@@ -421,13 +569,262 @@ def phase_slice(dev: torch.device, report: list) -> None:
     ]
     print(f"crop 16x16 card vs CPU: max abs diff colors {errs[0]:.2e} "
           f"opacities {errs[1]:.2e} depths {errs[2]:.2e}")
+    return launches
+
+
+def bench_stream(dev, n_batches: int):
+    """bench.py's train-mode rays and pixels (RandomState(0)): origins
+    uniform in [-1, 1]^3, normalised Gaussian directions, uniform pixels;
+    each (n_batches, TRAIN_RAYS, 3) f32 on ``dev``."""
+    r = np.random.RandomState(0)
+    shape = (n_batches, TRAIN_RAYS, 3)
+    o = (r.rand(*shape) * 2 - 1).astype(np.float32)
+    d = r.randn(*shape).astype(np.float32)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    px = r.rand(*shape).astype(np.float32)
+    return [torch.as_tensor(a, device=dev) for a in (o, d, px)]
+
+
+def _train_kw(use_kernels: bool, n_rays: int) -> dict:
+    return dict(TRAIN_KW, samples_budget=n_rays * 48, use_pallas=use_kernels)
+
+
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def check_train_card_vs_cpu(dev, o, d, px) -> None:
+    """One step of CHECK_RAYS rays on the card (kernels) and on the CPU
+    (the same path, plain twins), from the same weights."""
+    from nerfacc_tpu_torch import train_step
+
+    results = []
+    for device in (dev, torch.device("cpu")):
+        field, grid = make_scene(device, use_kernel=True)
+        opt = torch.optim.Adam(field.parameters(), lr=LR)
+        loss, n = train_step(field, opt, grid, o.to(device), d.to(device),
+                             px.to(device), **_train_kw(True, CHECK_RAYS))
+        grads = {k: p.grad.cpu() for k, p in field.named_parameters()}
+        results.append((float(loss), int(n), grads))
+    (loss_c, n_c, g_c), (loss_h, n_h, g_h) = results
+    rel = abs(loss_c - loss_h) / loss_h
+    worst = max((_rel_l2(g_c[k], g_h[k]), k) for k in g_h)
+    print(f"train step card vs CPU ({CHECK_RAYS} rays): loss {loss_c:.7f} vs "
+          f"{loss_h:.7f} (rel {rel:.2e}); live samples {n_c} vs {n_h}; "
+          f"worst gradient rel L2 err {worst[0]:.2e} ({worst[1]})")
+    if rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"train loss card vs CPU: rel err {rel:.2e}")
+    if worst[0] > TRAIN_GRAD_L2:
+        raise AssertionError(f"gradient {worst[1]} card vs CPU: rel L2 err "
+                             f"{worst[0]:.2e}")
+    if abs(n_c - n_h) > max(2, n_h // 1000):
+        raise AssertionError(f"live samples card {n_c} vs CPU {n_h}")
+
+
+def _timed_steps(field, opt, grid, batches, kw):
+    """Train on each (o, d, px) batch; per step: host ms ending in a
+    synchronize, loss, live samples and the kernels' launches."""
+    from nerfacc_tpu_torch import train_step
+
+    counters = kernel_counters()
+    rec = []
+    for o, d, px in batches:
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, n = train_step(field, opt, grid, o, d, px, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec.append((ms, float(loss), int(n), {
+            k: c.launches - before[k] for k, c in counters.items()}))
+    return rec
+
+
+def _check_finite_params(name, field) -> None:
+    for k, p in field.named_parameters():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{name}: parameter {k} is not finite")
+
+
+def phase_train(dev) -> dict:
+    """The training step at full width, its plain twin, and the grid
+    update; returns the launch counts of each path."""
+    paths = {}
+    o, d, px = bench_stream(dev, TRAIN_STEPS + 1)
+    check_train_card_vs_cpu(dev, o[0, :CHECK_RAYS], d[0, :CHECK_RAYS],
+                            px[0, :CHECK_RAYS])
+
+    field, grid = make_scene(dev, use_kernel=True)
+    opt = torch.optim.Adam(field.parameters(), lr=LR)
+    kw = _train_kw(True, TRAIN_RAYS)
+    batch = [(o[i], d[i], px[i]) for i in range(TRAIN_STEPS + 1)]
+    _timed_steps(field, opt, grid, batch[:1], kw)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    rec, paths["train"] = drive(
+        f"{TRAIN_STEPS} training steps",
+        lambda: _timed_steps(field, opt, grid, batch[1:], kw),
+        ("cp_level_features_res", "cp_level_grads_res",
+         "fused_select_grouped"),
+        ("cp_level_features", "cp_level_grads", "fused_reselect"),
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"cp_level_features_res": 2, "cp_level_grads_res": 2,
+                "fused_select_grouped": 1}
+    for i, (ms, loss, n, counts) in enumerate(rec):
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {i}: loss {loss}")
+        for k, want in per_step.items():
+            if counts[k] != want:
+                raise AssertionError(f"train step {i}: {k} launched "
+                                     f"{counts[k]} times, expected {want}")
+    _check_finite_params("training", field)
+    ms = [r[0] for r in rec]
+    live = [r[2] for r in rec]
+    print(f"train steps (kernels, {TRAIN_RAYS} rays): losses "
+          f"{[round(r[1], 6) for r in rec]}")
+    print(f"train step (kernels): median {statistics.median(ms):.3f} ms "
+          f"(min {min(ms):.3f}, max {max(ms):.3f}); live samples per step "
+          f"median {statistics.median(live)}; "
+          f"{sum(live) / sum(ms) * 1e3:.0f} samples/s; peak memory "
+          f"{peak_gb:.2f} GB")
+
+    # a repeated batch: the loss after TRAIN_STEPS steps is below step 0's
+    losses = [r[1] for r in _timed_steps(
+        field, opt, grid, batch[:1] * (TRAIN_STEPS + 1), kw)]
+    print(f"repeated batch: loss {losses[0]:.7f} -> {losses[-1]:.7f} after "
+          f"{TRAIN_STEPS} steps")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall on a repeated batch")
+
+    # the plain twin of the whole step: no kernel at all
+    pfield, _ = make_scene(dev, use_kernel=False)
+    popt = torch.optim.Adam(pfield.parameters(), lr=LR)
+    pkw = _train_kw(False, TRAIN_RAYS)
+    _timed_steps(pfield, popt, grid, batch[:1], pkw)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    prec, _ = drive("plain training steps",
+                    lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw),
+                    (), tuple(kernel_counters()))
+    _check_finite_params("plain training", pfield)
+    pms = [r[0] for r in prec]
+    print(f"train step (plain): median {statistics.median(pms):.3f} ms over "
+          f"{len(pms)} steps; live samples {[r[2] for r in prec]}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    paths.update(phase_grid_update(dev, field, grid))
+    return paths
+
+
+def phase_grid_update(dev, field, grid) -> dict:
+    """update_grid on the trained-grid state, warm-up path (every cell) and
+    sampled path (1/4 uniform + 1/4 occupied); then the card against the
+    CPU on a 32^3 grid with the same cells and jitter."""
+    from nerfacc_tpu_torch import update_grid
+    from nerfacc_tpu_torch.convert import grid_from_arrays
+    from nerfacc_tpu_torch.grid import _update_grid_at
+
+    step_size = TRAIN_KW["render_step_size"]
+
+    def occ_fn(model):
+        return lambda x: model.query_density(x) * step_size
+
+    paths = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, step in (("warm-up", 0), ("sampled", 10**9)):
+        t0 = time.perf_counter()
+        new, counts = drive(
+            f"update_grid ({name})",
+            lambda: update_grid(grid, gen, step, occ_fn(field), occ_thre=1e-2,
+                                ema_decay=0.95),
+            ("cp_level_features",),
+            tuple(k for k in kernel_counters() if k != "cp_level_features"),
+        )
+        ms = (time.perf_counter() - t0) * 1e3
+        paths[f"update_grid {name}"] = counts
+        if not bool(torch.isfinite(new.occs).all()):
+            raise AssertionError(f"update_grid ({name}): non-finite occs")
+        print(f"update_grid ({name}, {grid.num_cells} cells): occupied "
+              f"{float(new.binary.float().mean()):.4f} (before "
+              f"{float(grid.binary.float().mean()):.4f}); K1 launches "
+              f"{counts['cp_level_features']}; {ms:.1f} ms")
+
+    # 32^3: the trained grid max-pooled 4x4x4, the same cells and jitter
+    asset = np.load(ROOT / "bench_assets" / "trained_grid.npz")
+    binary = asset["binary"].reshape(32, 4, 32, 4, 32, 4).any(axis=(1, 3, 5))
+    occs = asset["occs"].reshape(32, 4, 32, 4, 32, 4).max(axis=(1, 3, 5))
+    cpu_field, _ = make_scene(torch.device("cpu"), use_kernel=True)
+    cpu_field.load_state_dict(field.state_dict())
+    rng = np.random.RandomState(SEED)
+    n = binary.size
+    occupied = np.flatnonzero(binary)
+    for name, idx in (
+        ("warm-up", np.arange(n)),
+        ("sampled", np.concatenate([rng.randint(0, n, n // 4),
+                                    rng.choice(occupied, n // 4)])),
+    ):
+        jitter = rng.rand(idx.size, 3).astype(np.float32)
+        out = []
+        for device, model in ((dev, field), (torch.device("cpu"), cpu_field)):
+            g32 = grid_from_arrays(AABB, binary, occs, device=device)
+            out.append(_update_grid_at(
+                g32, torch.as_tensor(idx, device=device),
+                torch.as_tensor(jitter, device=device), occ_fn(model),
+                occ_thre=1e-2, ema_decay=0.95, adaptive_thre=True))
+        card, cpu = out
+        occ_c, occ_h = card.occs.cpu(), cpu.occs
+        rel = float(((occ_c - occ_h).abs() / occ_h.abs().clamp(min=1e-30))
+                    .max())
+        thre = min(float(occ_h.mean()), 1e-2)
+        flips = (card.binary.cpu() != cpu.binary).reshape(-1)
+        near = (occ_h - thre).abs() <= OCC_RTOL * thre
+        print(f"update_grid 32^3 ({name}) card vs CPU: occs max rel err "
+              f"{rel:.2e}; binary differs at {int(flips.sum())} of {n} "
+              f"cells ({int((flips & near).sum())} within {OCC_RTOL} of the "
+              f"threshold {thre:.3e})")
+        if rel > OCC_RTOL or bool((flips & ~near).any()):
+            raise AssertionError(f"update_grid 32^3 ({name}): card vs CPU")
+    return paths
+
+
+def phase_op_backward(dev) -> dict:
+    """The ``cp_level_features`` op differentiated at the slice's level-1
+    shape: K1 forward, K3 backward (the model's training step takes the
+    residual op, K2 and K4, instead)."""
+    from nerfacc_tpu_torch.ops import cp_level_features
+
+    rng = np.random.RandomState(SEED + 1)
+    xu = torch.as_tensor(rng.rand(B_SAMPLES, 3).astype(np.float32),
+                         device=dev)
+    tables = [torch.as_tensor(rng.randn(512, 128).astype(np.float32) * 0.2,
+                              device=dev).requires_grad_()
+              for _ in range(3)]
+    cot = torch.as_tensor(rng.randn(B_SAMPLES, 128).astype(np.float32),
+                          device=dev)
+    _, counts = drive(
+        "the cp_level_features op's backward",
+        lambda: cp_level_features(xu, *tables).backward(cot),
+        ("cp_level_features", "cp_level_grads"),
+        ("cp_level_features_res", "cp_level_grads_res"),
+    )
+    if not all(bool(torch.isfinite(t.grad).all()) for t in tables):
+        raise AssertionError("cp_level_features backward: non-finite grads")
+    return {"cp_level_features op backward": counts}
 
 
 def main() -> None:
     dev = phase_device()
     phase_build()
     report = phase_kernels(dev)
-    phase_slice(dev, report)
+    paths = {"render": phase_slice(dev)}
+    paths.update(phase_train(dev))
+    paths.update(phase_op_backward(dev))
+    for entry in report:
+        by_path = {p: c[entry["name"]] for p, c in paths.items()
+                   if c[entry["name"]]}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+        if entry["launches"] < 1:
+            raise AssertionError(f"{entry['name']} never launched")
     print(f"nvidia-smi: {smi_line()}")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,24 @@
 """nerfacc_tpu_torch: the PyTorch + CUDA port of nerfacc_tpu, for Hopper.
 
-The forward render path of the JAX package — occupancy-grid march, the
-TensoCP field and dense volume rendering — in PyTorch, with hand-written
+The render path and the TensoCP training step of the JAX package —
+occupancy-grid march and grid update, the TensoCP field, dense volume
+rendering with its closed-form backward — in PyTorch, with hand-written
 CUDA kernels (``ops/``) for march slot selection, stage-2 re-selection and
-the CP encoder. The kernels are built with ``nvcc`` at first use; CPU
-tensors take each kernel's plain PyTorch twin. Training (grid updates,
-backward kernels, optimizers) is not ported yet.
+the CP encoder's forward and table gradients. The kernels are built with
+``nvcc`` at first use; CPU tensors take each kernel's plain PyTorch twin.
 """
 
 from .contraction import ContractionType, contract, contract_inv
-from .grid import OccupancyGrid, create_grid, dilate_binary, query_grid, with_binary
+from .grid import (
+    OccupancyGrid,
+    create_grid,
+    dilate_binary,
+    every_n_step,
+    query_grid,
+    update_grid,
+    with_binary,
+)
+from .ops import cp_level_features, cp_level_features_res
 from .intersection import ray_aabb_intersect
 from .ray_marching import (
     RaySegments,
@@ -21,6 +30,7 @@ from .ray_marching import (
     select_slots,
     select_slots_grouped,
 )
+from .training import compact_mse, train_step
 from .utils import render_image, render_rays
 from .vol_rendering import (
     accumulate_along_rays_dense,
@@ -34,10 +44,14 @@ __all__ = [
     "OccupancyGrid",
     "RaySegments",
     "accumulate_along_rays_dense",
+    "compact_mse",
     "contract",
     "contract_inv",
+    "cp_level_features",
+    "cp_level_features_res",
     "create_grid",
     "dilate_binary",
+    "every_n_step",
     "gather_rows_dense",
     "march_rays",
     "probe_live_groups",
@@ -52,5 +66,7 @@ __all__ = [
     "samples_needed_for_range",
     "select_slots",
     "select_slots_grouped",
+    "train_step",
+    "update_grid",
     "with_binary",
 ]

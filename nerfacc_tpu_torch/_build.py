@@ -36,6 +36,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # xu, t0, t1, t2, out, B, G, R, stream
     "nerfacc_cp_level_features": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # xu, t0, t1, t2, out, u0, u1, u2, B, G, R, stream
+    "nerfacc_cp_level_features_res": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # xu, t0, t1, t2, g, d0, d1, d2, B, G, R, stream
+    "nerfacc_cp_level_grads": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # xu, g, u0, u1, u2, d0, d1, d2, B, G, R, stream
+    "nerfacc_cp_level_grads_res": (_P,) * 8 + (_I,) * 3 + (_P,),
     # live, group_size, t_min, ts, te, dt, ok, R, G, K,
     # step, cone, dt_max, step / cone, log1p(cone), stream
     "nerfacc_select_grouped": (_P,) * 7 + (_I,) * 3 + (_F,) * 5 + (_P,),

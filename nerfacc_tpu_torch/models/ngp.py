@@ -6,14 +6,27 @@ from __future__ import annotations
 import torch
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(torch.clamp(x, max=30.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, max=15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """Density activation ``exp(min(x, 30))``, forward only.
+    """Density activation ``exp(min(x, 30))`` with the clamped gradient
+    ``g * exp(min(x, 15))`` (torch-ngp's ``trunc_exp``).
 
     The forward clamp keeps an overflowed density from poisoning masked
-    slot math (inf * 0 = NaN). The JAX package's clamped backward
-    (``exp(min(x, 15))``) waits for the training port.
+    slot math (inf * 0 = NaN); the backward clamp keeps one bright sample
+    from blowing up a step.
     """
-    return torch.exp(torch.clamp(x, max=30.0))
+    return _TruncExp.apply(x)
 
 
 def contract_to_unisphere(x: torch.Tensor, aabb: torch.Tensor) -> torch.Tensor:

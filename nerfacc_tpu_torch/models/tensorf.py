@@ -12,7 +12,9 @@ The numerics are the JAX package's. The default path (``use_kernel=False``)
 multiplies a bf16 basis by a bf16 table into bf16 features; the kernel path
 (``use_kernel=True``) produces f32 features, as the Pallas kernel does. The
 heads round inputs and weights to bf16, accumulate in f32 and round each
-layer's output to bf16, with f32 parameters and an f32 result.
+layer's output to bf16, with f32 parameters and an f32 result; their
+gradients round the same way. The kernel path's table gradients come
+from the CP encoder's backward kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cp_encoder import cp_level_features
+from ..ops.cp_encoder import cp_level_features_res
 from .ngp import contract_to_unisphere, spherical_harmonics_deg4, trunc_exp
 
 
@@ -38,7 +40,12 @@ def hat_basis(x: torch.Tensor, grid_size: int) -> torch.Tensor:
 
 def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """bf16 x bf16 -> bf16 with f32 accumulation and one final rounding.
-    ``b`` is (in, out)."""
+    ``b`` is (in, out).
+
+    Autograd differentiates it as XLA transposes a bf16 dot: the incoming
+    gradient is bf16-valued, each of ``da`` and ``db`` is an f32 product
+    rounded once to bf16 (the ``.float()`` casts' backward), and ``db``
+    reaches the f32 parameter as that bf16 value."""
     return (a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()).to(
         torch.bfloat16
     )
@@ -47,10 +54,11 @@ def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class CPLevel(nn.Module):
     """One CP level: three (G, R) axis tables ``axis0..2``.
 
-    ``use_kernel=True`` computes the features with the CUDA kernel
-    :func:`nerfacc_tpu_torch.ops.cp_level_features` (the JAX package's
-    Pallas switch; here it selects the CUDA kernel, and the plain twin on
-    CPU tensors). It is forward only for now.
+    ``use_kernel=True`` computes the features with the CUDA kernels of
+    :func:`nerfacc_tpu_torch.ops.cp_level_features_res` (the JAX package's
+    Pallas switch; here it selects the CUDA kernels, and the plain twins
+    on CPU tensors): K2 saves bf16 residuals for K4's table gradients when
+    the tables take a gradient, and K1 runs alone when they do not.
     """
 
     def __init__(
@@ -74,7 +82,7 @@ class CPLevel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, 3) in [0, 1]^3 -> (B, rank)
         if self.use_kernel:
-            return cp_level_features(x, *self.tables())
+            return cp_level_features_res(x, *self.tables())
         feats = None
         for axis, table in enumerate(self.tables()):
             u = _bf16_matmul(hat_basis(x[:, axis], self.grid_size), table)

@@ -1,22 +1,33 @@
-"""CP level features of the TensoCP field: CUDA kernel and plain twin.
+"""CP level features of the TensoCP field: CUDA kernels and plain twins.
 
-``cp_level_features`` replaces the forward of the Pallas kernel
-``nerfacc_tpu/ops/cp_encoder.py::_cp_fwd_impl`` (``_fwd_kernel``), which
-also serves ``cp_level_features_res``'s (B, R) output. Per level and axis
-the feature is ``hat(xu[:, a] * (G - 1)) @ T_a`` with a bf16 hat basis, a
-bf16-rounded table and f32 accumulation; the level feature is the product
-of the three axis features.
+Four kernels replace the Pallas kernels of
+``nerfacc_tpu/ops/cp_encoder.py`` (sources in ``csrc/cp_encoder.cu``):
 
-The TPU kernel builds the dense (B, G) basis and multiplies it on the MXU
-to avoid gathers. Each basis row has exactly two nonzeros, so the CUDA
-kernel (``csrc/cp_encoder.cu``) reads the two table rows each sample
-touches instead: no basis and no matrix product exist anywhere. Every
-other term of the TPU's row product is an exact zero, so the sum is the
-same.
+- K1 ``_cp_fwd_impl``: the (B, R) level features. Per axis the feature is
+  ``hat(xu[:, a] * (G - 1)) @ T_a`` with a bf16 hat basis, a bf16-rounded
+  table and f32 accumulation; the level feature is the product of the
+  three axis features.
+- K2 ``_cp_fwd_res_impl``: K1's output plus each axis feature rounded to
+  bf16, saved as residuals for K4.
+- K3 ``_cp_bwd``: the table gradients ``hat_a^T @ bf16(g * u_b * u_c)``
+  with the f32 axis features recomputed from the tables.
+- K4 ``_cp_bwd_res``: the same from K2's residuals, with ``bf16(g)`` and
+  ``bf16(u_b * u_c)``.
 
-The backward kernels (the table gradients, and the forward that saves
-per-axis residuals for them) belong to training and are not ported yet:
-asking for a gradient through this wrapper raises.
+The TPU kernels build the dense (B, G) basis and multiply it on the MXU to
+avoid gathers and scatters. Each basis row has exactly two nonzeros, so
+the CUDA kernels read (forward) or add into (backward) the two table rows
+each sample touches instead: no basis and no matrix product exist. The
+forward sums are the same as the TPU's; the backward's f32 sums over the
+batch run in atomic order, so they agree to f32 summation order.
+
+Two autograd ops wrap them, as the JAX package's ``custom_vjp``\\ s do:
+``cp_level_features`` (K1 forward, K3 backward) and
+``cp_level_features_res`` (K2 forward, K4 backward; K1 alone when no
+gradient is asked for). Neither gives a gradient for ``xu``: sampling is
+stop-gradient everywhere. Each kernel counts its launches on the function
+named for it: ``cp_level_features`` (K1), ``cp_level_features_res`` (K2),
+``cp_level_grads`` (K3), ``cp_level_grads_res`` (K4).
 """
 
 from __future__ import annotations
@@ -36,54 +47,237 @@ def hat_basis_bf16(x: torch.Tensor, grid_size: int) -> torch.Tensor:
     )
 
 
-def cp_level_features_plain(xu, t0, t1, t2) -> torch.Tensor:
-    """Dense formulation: bf16 basis times bf16 table, f32 accumulation,
-    f32 output (the product runs in f32 on bf16-rounded operands, which is
-    exact per term)."""
-    G = t0.shape[0]
-    feats = None
-    for axis, table in enumerate((t0, t1, t2)):
+def _bases_and_features(xu, tables):
+    """Per axis: the f32 (B, G) bf16-valued basis and the f32 feature
+    ``basis @ bf16(T_a)`` (exact products, f32 sums)."""
+    G = tables[0].shape[0]
+    bases, feats = [], []
+    for axis, table in enumerate(tables):
         basis = hat_basis_bf16(xu[:, axis], G).to(torch.float32)
-        ua = basis @ table.to(torch.bfloat16).to(torch.float32)
-        feats = ua if feats is None else feats * ua
-    return feats
+        bases.append(basis)
+        feats.append(basis @ table.to(torch.bfloat16).to(torch.float32))
+    return bases, feats
 
 
-def cp_level_features(xu, t0, t1, t2) -> torch.Tensor:
-    """CP level features ``prod_axes hat(xu[:, a]) @ T_a``, forward only.
+def cp_level_features_plain(xu, t0, t1, t2) -> torch.Tensor:
+    """K1's twin. Dense formulation: bf16 basis times bf16 table, f32
+    accumulation, f32 output (the product runs in f32 on bf16-rounded
+    operands, which is exact per term)."""
+    _, (u0, u1, u2) = _bases_and_features(xu, (t0, t1, t2))
+    return u0 * u1 * u2
 
-    Args:
-        xu: (B, 3) f32 coordinates in [0, 1]^3.
-        t0, t1, t2: (G, R) f32 per-axis factor tables.
 
-    Returns:
-        (B, R) f32 features.
-    """
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (xu, t0, t1, t2)
-    ):
-        raise NotImplementedError(
-            "cp_level_features has no backward yet (the table-gradient "
-            "kernels are not ported); call it under torch.no_grad()"
+def cp_level_features_res_plain(xu, t0, t1, t2):
+    """K2's twin: ``(features, (u0, u1, u2))`` with the residuals
+    ``bf16(u_a)`` of the f32 axis features."""
+    _, (u0, u1, u2) = _bases_and_features(xu, (t0, t1, t2))
+    residuals = tuple(u.to(torch.bfloat16) for u in (u0, u1, u2))
+    return u0 * u1 * u2, residuals
+
+
+def cp_level_grads_plain(xu, t0, t1, t2, g):
+    """K3's twin: ``dT_a = basis_a^T @ bf16(g * (u_b * u_c))`` in f32, with
+    f32 axis features."""
+    bases, us = _bases_and_features(xu, (t0, t1, t2))
+    grads = []
+    for axis in range(3):
+        others = us[(axis + 1) % 3] * us[(axis + 2) % 3]
+        d = (g * others).to(torch.bfloat16).to(torch.float32)
+        grads.append(bases[axis].t() @ d)
+    return tuple(grads)
+
+
+def cp_level_grads_res_plain(xu, g, u0, u1, u2, grid_size: int):
+    """K4's twin: ``dT_a = basis_a^T @ bf16(bf16(g) * bf16(u_b * u_c))`` in
+    f32, from bf16 residuals."""
+    gb = g.to(torch.bfloat16).to(torch.float32)
+    us = [u.to(torch.float32) for u in (u0, u1, u2)]
+    grads = []
+    for axis in range(3):
+        others = (us[(axis + 1) % 3] * us[(axis + 2) % 3]).to(torch.bfloat16)
+        d = (gb * others.to(torch.float32)).to(torch.bfloat16)
+        basis = hat_basis_bf16(xu[:, axis], grid_size).to(torch.float32)
+        grads.append(basis.t() @ d.to(torch.float32))
+    return tuple(grads)
+
+
+def _table_ptrs(name, xu, tables):
+    B = xu.shape[0]
+    G, R = tables[0].shape
+    dev = xu.device
+    ptrs = [_build.cuda_ptr(name, "xu", xu, torch.float32, (B, 3), dev)]
+    for i, t in enumerate(tables):
+        ptrs.append(
+            _build.cuda_ptr(name, f"t{i}", t, torch.float32, (G, R), dev)
         )
+    return ptrs, B, G, R, dev
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _features(xu, t0, t1, t2) -> torch.Tensor:
+    """K1 (the plain twin for CPU tensors)."""
     if xu.device.type == "cpu":
         return cp_level_features_plain(xu, t0, t1, t2)
     name = "cp_level_features"
-    B = xu.shape[0]
-    G, R = t0.shape
-    dev = xu.device
-    args = [_build.cuda_ptr(name, "xu", xu, torch.float32, (B, 3), dev)]
-    for arg, t in (("t0", t0), ("t1", t1), ("t2", t2)):
-        args.append(_build.cuda_ptr(name, arg, t, torch.float32, (G, R), dev))
+    ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.lib().nerfacc_cp_level_features(
-            *args, out.data_ptr(), B, G, R,
-            torch.cuda.current_stream(dev).cuda_stream,
+            *ptrs, out.data_ptr(), B, G, R, _stream(dev)
         )
     _build.check(err, name)
     cp_level_features.launches += 1
     return out
 
 
+def cp_level_features_res_fwd(xu, t0, t1, t2):
+    """K2: ``(features, (u0, u1, u2))``, the (B, R) f32 features and the
+    three (B, R) bf16 residuals (the plain twin for CPU tensors)."""
+    if xu.device.type == "cpu":
+        return cp_level_features_res_plain(xu, t0, t1, t2)
+    name = "cp_level_features_res"
+    ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
+    out = torch.empty((B, R), dtype=torch.float32, device=dev)
+    residuals = tuple(
+        torch.empty((B, R), dtype=torch.bfloat16, device=dev)
+        for _ in range(3)
+    )
+    with torch.cuda.device(dev):
+        err = _build.lib().nerfacc_cp_level_features_res(
+            *ptrs, out.data_ptr(), *(u.data_ptr() for u in residuals),
+            B, G, R, _stream(dev),
+        )
+    _build.check(err, name)
+    cp_level_features_res.launches += 1
+    return out, residuals
+
+
+def _zero_grads(G, R, dev):
+    return tuple(
+        torch.zeros((G, R), dtype=torch.float32, device=dev) for _ in range(3)
+    )
+
+
+def cp_level_grads(xu, t0, t1, t2, g):
+    """K3: the three (G, R) f32 table gradients of ``cp_level_features``
+    for the (B, R) f32 cotangent ``g`` (the plain twin for CPU tensors)."""
+    if xu.device.type == "cpu":
+        return cp_level_grads_plain(xu, t0, t1, t2, g)
+    name = "cp_level_grads"
+    ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
+    ptrs.append(_build.cuda_ptr(name, "g", g, torch.float32, (B, R), dev))
+    grads = _zero_grads(G, R, dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().nerfacc_cp_level_grads(
+            *ptrs, *(d.data_ptr() for d in grads), B, G, R, _stream(dev)
+        )
+    _build.check(err, name)
+    cp_level_grads.launches += 1
+    return grads
+
+
+def cp_level_grads_res(xu, g, u0, u1, u2, grid_size: int):
+    """K4: the three (G, R) f32 table gradients of
+    ``cp_level_features_res`` from the f32 cotangent ``g`` and K2's bf16
+    residuals (the plain twin for CPU tensors)."""
+    if xu.device.type == "cpu":
+        return cp_level_grads_res_plain(xu, g, u0, u1, u2, grid_size)
+    name = "cp_level_grads_res"
+    B, R = g.shape
+    G, dev = int(grid_size), xu.device
+    ptrs = [
+        _build.cuda_ptr(name, "xu", xu, torch.float32, (B, 3), dev),
+        _build.cuda_ptr(name, "g", g, torch.float32, (B, R), dev),
+    ]
+    for i, u in enumerate((u0, u1, u2)):
+        ptrs.append(
+            _build.cuda_ptr(name, f"u{i}", u, torch.bfloat16, (B, R), dev)
+        )
+    grads = _zero_grads(G, R, dev)
+    with torch.cuda.device(dev):
+        err = _build.lib().nerfacc_cp_level_grads_res(
+            *ptrs, *(d.data_ptr() for d in grads), B, G, R, _stream(dev)
+        )
+    _build.check(err, name)
+    cp_level_grads_res.launches += 1
+    return grads
+
+
+def _table_grads(ctx, grads):
+    return (None,) + tuple(
+        d if need else None for d, need in zip(grads, ctx.needs_input_grad[1:])
+    )
+
+
+class _CPLevelFeatures(torch.autograd.Function):
+    """K1 forward, K3 backward."""
+
+    @staticmethod
+    def forward(ctx, xu, t0, t1, t2):
+        ctx.save_for_backward(xu, t0, t1, t2)
+        return _features(xu, t0, t1, t2)
+
+    @staticmethod
+    def backward(ctx, g):
+        xu, t0, t1, t2 = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        return _table_grads(ctx, cp_level_grads(xu, t0, t1, t2, g))
+
+
+class _CPLevelFeaturesRes(torch.autograd.Function):
+    """K2 forward (saves the bf16 residuals), K4 backward."""
+
+    @staticmethod
+    def forward(ctx, xu, t0, t1, t2):
+        feats, residuals = cp_level_features_res_fwd(xu, t0, t1, t2)
+        ctx.save_for_backward(xu, *residuals)
+        ctx.grid_size = t0.shape[0]
+        return feats
+
+    @staticmethod
+    def backward(ctx, g):
+        xu, u0, u1, u2 = ctx.saved_tensors
+        g = g.to(torch.float32).contiguous()
+        return _table_grads(
+            ctx, cp_level_grads_res(xu, g, u0, u1, u2, ctx.grid_size)
+        )
+
+
+def _wants_table_grads(tables) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tables)
+
+
+def cp_level_features(xu, t0, t1, t2) -> torch.Tensor:
+    """CP level features ``prod_axes hat(xu[:, a]) @ T_a`` (K1), with the
+    table gradients of K3 as its backward.
+
+    Args:
+        xu: (B, 3) f32 coordinates in [0, 1]^3 (no gradient flows to it).
+        t0, t1, t2: (G, R) f32 per-axis factor tables.
+
+    Returns:
+        (B, R) f32 features.
+    """
+    if _wants_table_grads((t0, t1, t2)):
+        return _CPLevelFeatures.apply(xu, t0, t1, t2)
+    return _features(xu, t0, t1, t2)
+
+
+def cp_level_features_res(xu, t0, t1, t2) -> torch.Tensor:
+    """Like :func:`cp_level_features`, but the forward (K2) saves the bf16
+    axis features and the backward (K4) works from them instead of
+    re-reading the tables: the training path. Without a gradient to take
+    (``torch.no_grad()`` or no table requiring one) it launches K1 and
+    saves nothing."""
+    if _wants_table_grads((t0, t1, t2)):
+        return _CPLevelFeaturesRes.apply(xu, t0, t1, t2)
+    return _features(xu, t0, t1, t2)
+
+
 cp_level_features.launches = 0
+cp_level_features_res.launches = 0
+cp_level_grads.launches = 0
+cp_level_grads_res.launches = 0

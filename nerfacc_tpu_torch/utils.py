@@ -4,10 +4,11 @@
 layout: t-range, strided probes and empty-ray compaction, the grouped
 march, the optional two-stage visibility cull with stage-2 re-selection,
 then the field query and the composite. ``render_image`` chunks a whole
-image through it without gradients.
+image through it without gradients. The training step renders with
+``return_compact=True`` and the target pixels as ``aux``.
 
 Paths that wait for later ports raise ``NotImplementedError``: live-sample
-compaction (``field_samples_budget``, ``return_compact``, ``aux``) needs
+compaction of the field (``field_samples_budget``) needs
 ``ops/sample_compact.py``, and ``timestamps`` needs the D-NeRF field.
 """
 
@@ -94,7 +95,8 @@ def render_rays(
     stratified jitter. Returns ``(colors, opacities, depths, n_samples)``,
     with ``n_samples`` the live sample count, plus an extras dict of the
     per-slot ``weights / t_starts / t_ends / deltas / masks`` (of the
-    compacted ray set) when ``return_extras``.
+    compacted ray set) and the ``field_budget_dropped`` count (0: the
+    field is not compacted) when ``return_extras``.
 
     ``samples_budget`` sets ``K = ceil(budget / n_rays)`` slots per ray.
     ``compact_rays_fraction`` (with ``grid`` and ``coarse_stride > 1``)
@@ -105,11 +107,19 @@ def render_rays(
     visibility cull, and re-selection into ``K2`` slots per ray.
     ``use_pallas=True`` routes the march selection and the re-selection
     through the CUDA kernels.
+
+    ``aux`` is an optional (n_rays, D) per-ray payload (e.g. the target
+    pixels), gathered with the compacted rays. ``return_compact`` skips the
+    expand-back and returns the compacted outputs with the selection,
+    ``(colors, opacities, depths, n_samples, sel)`` with ``sel =
+    {"ray_indices", "ray_ok", "aux"}`` (plus ``sel["extras"]`` with
+    ``return_extras``); without ray compaction the selection is every ray.
+    Rays left out render exactly ``render_bkgd``, so a full-batch loss
+    follows algebraically (``training.compact_mse``).
     """
-    if field_samples_budget is not None or return_compact or aux is not None:
+    if field_samples_budget is not None:
         raise NotImplementedError(
-            "live-sample compaction (field_samples_budget / return_compact "
-            "/ aux) is not ported yet"
+            "live-sample compaction (field_samples_budget) is not ported yet"
         )
     if timestamps is not None:
         raise NotImplementedError("time-conditioned fields are not ported yet")
@@ -150,6 +160,8 @@ def render_rays(
         rays_o, rays_d = rays_o[ridx], rays_d[ridx]
         t_min, t_max = t_min[ridx], t_max[ridx]
         live_groups = live_g[ridx]
+        if aux is not None:
+            aux = aux.to(torch.float32)[ridx]
         n_rays = H
 
     K = S if samples_budget is None else min(
@@ -212,6 +224,26 @@ def render_rays(
     )
     if render_bkgd is not None:
         colors = colors + render_bkgd * (1.0 - opacities)
+    extras = None
+    if return_extras:
+        extras = {
+            "weights": weights, "t_starts": t_starts, "t_ends": t_ends,
+            "deltas": deltas, "masks": masks,
+            # no live-sample compaction of the field yet: nothing dropped
+            "field_budget_dropped": torch.zeros(
+                (), dtype=torch.int32, device=masks.device
+            ),
+        }
+
+    if return_compact:
+        ridx, ray_ok = ray_sel if ray_sel is not None else (
+            torch.arange(n_rays, device=masks.device),
+            torch.ones((n_rays,), dtype=torch.bool, device=masks.device),
+        )
+        sel = {"ray_indices": ridx, "ray_ok": ray_ok, "aux": aux}
+        if return_extras:
+            sel["extras"] = extras
+        return colors, opacities, depths, masks.sum(), sel
 
     if ray_sel is not None:
         # expand back to the full batch: rays without live samples render
@@ -231,10 +263,6 @@ def render_rays(
         depths = expand(depths, 0.0)
     n_samples = masks.sum()
     if return_extras:
-        extras = {
-            "weights": weights, "t_starts": t_starts, "t_ends": t_ends,
-            "deltas": deltas, "masks": masks,
-        }
         return colors, opacities, depths, n_samples, extras
     return colors, opacities, depths, n_samples
 

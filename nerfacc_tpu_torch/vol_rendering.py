@@ -1,10 +1,10 @@
-"""Volume rendering on the dense ``(n_rays, K)`` layout, forward only
-(PyTorch port of the dense half of :mod:`nerfacc_tpu.vol_rendering`).
+"""Volume rendering on the dense ``(n_rays, K)`` layout (PyTorch port of
+the dense half of :mod:`nerfacc_tpu.vol_rendering`).
 
 One ray per row, so transmittance is a row cumsum (or cumprod) and
-accumulation a row reduction. The closed-form backward passes of the JAX
-package belong to training and are not ported yet: these functions are
-plain tensor code, and autograd differentiates them as written.
+accumulation a row reduction. The weights from density carry the JAX
+package's closed-form backward; the other functions are plain tensor
+code that autograd differentiates as written.
 """
 
 from __future__ import annotations
@@ -23,13 +23,33 @@ def _exclusive_cumprod_rows(x: torch.Tensor) -> torch.Tensor:
     return torch.cumprod(shifted, dim=1)
 
 
+class _WeightFromDensityDense(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sigmas, deltas):
+        sd = sigmas * deltas
+        acc = torch.cumsum(sd, dim=1) - sd  # exclusive row cumsum
+        trans = torch.exp(-acc)
+        weights = trans * (1.0 - torch.exp(-sd))
+        ctx.save_for_backward(deltas, trans, weights)
+        return weights
+
+    @staticmethod
+    def backward(ctx, g):
+        # dL/dsigma_i = delta_i * (g_i T_i - sum_{j>=i} g_j w_j), the suffix
+        # sum a flipped row cumsum; the deltas get a zero gradient
+        deltas, trans, weights = ctx.saved_tensors
+        gw = g * weights
+        suffix = torch.flip(torch.cumsum(torch.flip(gw, (1,)), dim=1), (1,))
+        d_deltas = torch.zeros_like(deltas) if ctx.needs_input_grad[1] else None
+        return deltas * (g * trans - suffix), d_deltas
+
+
 def render_weight_from_density_dense(t_starts, t_ends, sigmas, masks=None):
     """Weights ``w_i = T_i (1 - exp(-sigma_i delta_i))``; invalid slots get
-    weight 0 and do not influence any other slot."""
+    weight 0 and do not influence any other slot. The sigma gradient is
+    the closed form ``delta_i (g_i T_i - sum_{j>=i} g_j w_j)``."""
     deltas = _masked(t_ends - t_starts, masks)
-    sd = _masked(sigmas, masks) * deltas
-    acc = torch.cumsum(sd, dim=1) - sd  # exclusive row cumsum
-    return torch.exp(-acc) * (1.0 - torch.exp(-sd))
+    return _WeightFromDensityDense.apply(_masked(sigmas, masks), deltas)
 
 
 def render_transmittance_from_alpha_dense(alphas, masks=None):

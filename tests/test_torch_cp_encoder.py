@@ -7,6 +7,7 @@ own kernel-vs-XLA bound for this level (both sides sum the same two exact
 bf16 products in f32, so the values agree far inside it).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,12 +63,24 @@ def test_cp_features_at_grid_ends():
 
 
 def test_cp_wrapper_refuses_gradients():
-    xu, ts = _fixture(B=16)
+    # the op refuses a gradient to the coordinates (JAX returns zeros);
+    # the tables' gradient flows (K3's twin) and matches jax.grad
+    xu, ts = _fixture(B=300, seed=7)
+    w = np.random.RandomState(8).randn(8).astype(np.float32)
     tables = [torch.as_tensor(t).requires_grad_() for t in ts]
-    with pytest.raises(NotImplementedError):
-        cp_level_features(torch.as_tensor(xu), *tables)
+    xu_t = torch.as_tensor(xu).requires_grad_()
+    (cp_level_features(xu_t, *tables) * torch.as_tensor(w)).sum().backward()
+    assert xu_t.grad is None
+    want = jax.grad(
+        lambda t0, t1, t2: jnp.sum(
+            jax_cp_level_features(jnp.asarray(xu), t0, t1, t2) * w),
+        argnums=(0, 1, 2),
+    )(*map(jnp.asarray, ts))
+    for table, g in zip(tables, want):
+        np.testing.assert_allclose(table.grad.numpy(), np.asarray(g),
+                                   rtol=1e-5, atol=1e-6)
     with torch.no_grad():
-        assert cp_level_features(torch.as_tensor(xu), *tables).shape == (16, 8)
+        assert cp_level_features(torch.as_tensor(xu), *tables).shape == (300, 8)
 
 
 def test_cp_wrapper_on_cpu_is_the_plain_twin():

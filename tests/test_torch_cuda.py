@@ -8,7 +8,9 @@ JAX):
 This file imports no JAX. Tolerances: masks bit-equal and t within
 rtol 1e-5 / atol 1e-6 (the march kernels keep the plain chain's f32
 operations; only cumsum order differs); CP features within 1e-6 absolute
-(both sum the same two exact products).
+(both sum the same two exact products) and the bf16 residuals equal; CP
+table gradients within 1e-5 of the largest |gradient| (the kernels add
+in atomic order, the plain product in cuBLAS's order).
 """
 
 import numpy as np
@@ -16,16 +18,29 @@ import pytest
 import torch
 
 from nerfacc_tpu_torch import _build
+from nerfacc_tpu_torch.convert import grid_from_arrays
+from nerfacc_tpu_torch.models import TensoCPRadianceField
 from nerfacc_tpu_torch.ops import (
     cp_level_features,
     cp_level_features_plain,
+    cp_level_features_res,
+    cp_level_features_res_fwd,
+    cp_level_features_res_plain,
+    cp_level_grads,
+    cp_level_grads_plain,
+    cp_level_grads_res,
+    cp_level_grads_res_plain,
     fused_reselect,
     fused_reselect_plain,
     fused_select_grouped,
     fused_select_grouped_plain,
 )
+from nerfacc_tpu_torch.training import train_step
 
 torch.set_num_threads(1)
+
+# table gradients: max abs error over the largest |gradient| of the twin
+GRAD_REL = 1e-5
 
 
 @pytest.fixture
@@ -85,6 +100,116 @@ def test_cp_kernel_matches_plain(cuda_device, G, R):
     assert cp_level_features.launches == before + 1
     torch.testing.assert_close(got, cp_level_features_plain(*args),
                                rtol=0.0, atol=1e-6)
+
+
+def _assert_grads_close(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= GRAD_REL * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R", [(33, 8), (512, 128)])
+def test_cp_training_kernels_match_plain(cuda_device, G, R):
+    # K2, K3 and K4 at a ragged B with samples at u == 0 and u == G - 1
+    rng = np.random.RandomState(6)
+    xu = rng.rand(3001, 3).astype(np.float32)
+    xu[:10] = 1.0
+    xu[10:20] = 0.0
+    tables = [(rng.randn(G, R) * 0.2).astype(np.float32) for _ in range(3)]
+    g = rng.randn(3001, R).astype(np.float32)
+    xu, t0, t1, t2, g = (torch.as_tensor(a, device=cuda_device)
+                         for a in (xu, *tables, g))
+    counters = (cp_level_features_res, cp_level_grads, cp_level_grads_res)
+    before = [fn.launches for fn in counters]
+
+    feats, us = cp_level_features_res_fwd(xu, t0, t1, t2)
+    want_feats, want_us = cp_level_features_res_plain(xu, t0, t1, t2)
+    torch.testing.assert_close(feats, want_feats, rtol=0.0, atol=1e-6)
+    assert torch.equal(feats, cp_level_features(xu, t0, t1, t2))  # K1's
+    for u, want in zip(us, want_us):
+        assert torch.equal(u, want)
+    _assert_grads_close(cp_level_grads(xu, t0, t1, t2, g),
+                        cp_level_grads_plain(xu, t0, t1, t2, g))
+    _assert_grads_close(cp_level_grads_res(xu, g, *us, G),
+                        cp_level_grads_res_plain(xu, g, *us, G))
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == [b + 1 for b in before]
+
+
+@pytest.mark.cuda
+def test_cp_autograd_ops_launch_their_kernels(cuda_device):
+    rng = np.random.RandomState(7)
+    xu = torch.as_tensor(rng.rand(500, 3).astype(np.float32),
+                         device=cuda_device)
+    tables = [torch.as_tensor((rng.randn(33, 8) * 0.2).astype(np.float32),
+                              device=cuda_device).requires_grad_()
+              for _ in range(3)]
+    for op, fwd, bwd in ((cp_level_features, cp_level_features,
+                          cp_level_grads),
+                         (cp_level_features_res, cp_level_features_res,
+                          cp_level_grads_res)):
+        n_fwd, n_bwd = fwd.launches, bwd.launches
+        op(xu, *tables).square().sum().backward()
+        assert (fwd.launches, bwd.launches) == (n_fwd + 1, n_bwd + 1)
+        assert all(t.grad is not None for t in tables)
+    # no gradient to take: the residual op runs K1 alone
+    n_k1, n_k2 = cp_level_features.launches, cp_level_features_res.launches
+    with torch.no_grad():
+        cp_level_features_res(xu, *tables)
+    assert cp_level_features.launches == n_k1 + 1
+    assert cp_level_features_res.launches == n_k2
+
+
+def _small_train_scene(device):
+    aabb = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
+    rng = np.random.RandomState(0)
+    binary = np.zeros((32, 32, 32), bool)
+    binary[6:26, 6:26, 6:26] = rng.rand(20, 20, 20) < 0.5
+    field = TensoCPRadianceField(
+        aabb=aabb, levels=((16, 8), (32, 16)), use_kernel=True,
+        density_bias=3.0, generator=torch.Generator().manual_seed(1),
+    ).to(device)
+    o = rng.randn(64, 3)
+    o = 2.5 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.randn(64, 3) * 0.8
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = [torch.as_tensor(a.astype(np.float32), device=device)
+            for a in (o, d, rng.rand(64, 3))]
+    kw = dict(scene_aabb=aabb, render_step_size=1e-2,
+              max_samples_per_ray=512, samples_budget=64 * 24,
+              coarse_stride=8, probe_dilation=1, probe_groups=16,
+              compact_rays_fraction=0.75, use_pallas=True)
+    return field, grid_from_arrays(aabb, binary, device=device), rays, kw
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    # one small train step through the kernels vs the plain twins on the
+    # CPU, from the same weights and rays. The heads round f32 sums taken
+    # in another order to bf16, which can move a value by one bf16 step
+    # (2^-8 relative): loss within 1e-4, each gradient within 1e-2 in L2.
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        field, grid, (o, d, px), kw = _small_train_scene(device)
+        opt = torch.optim.Adam(field.parameters(), lr=5e-4)
+        counts = (cp_level_features_res.launches, cp_level_grads_res.launches,
+                  fused_select_grouped.launches)
+        loss, n = train_step(field, opt, grid, o, d, px, **kw)
+        launched = [a - b for a, b in zip(
+            (cp_level_features_res.launches, cp_level_grads_res.launches,
+             fused_select_grouped.launches), counts)]
+        grads = {k: p.grad.detach().cpu() for k, p in field.named_parameters()}
+        results.append((float(loss), int(n), grads, launched))
+    (loss_c, n_c, g_c, l_c), (loss_h, n_h, g_h, l_h) = results
+    assert l_c == [2, 2, 1] and l_h == [0, 0, 0]
+    assert abs(loss_c - loss_h) <= 1e-4 * loss_h
+    assert abs(n_c - n_h) <= 2 and n_h > 200
+    for k, want in g_h.items():
+        err = float(torch.linalg.norm(g_c[k] - want))
+        assert err <= 1e-2 * float(torch.linalg.norm(want)), k
 
 
 @pytest.mark.cuda

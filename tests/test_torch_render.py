@@ -170,13 +170,14 @@ def test_render_image_matches_jax(scene):
 def test_unported_paths_raise(scene):
     *_, tfield, tgrid = scene
     o, d = (torch.as_tensor(a) for a in _camera_rays(8, seed=4))
-    for bad in (dict(field_samples_budget=64), dict(return_compact=True),
+    for bad in (dict(field_samples_budget=64),
                 dict(timestamps=torch.zeros(8, 1))):
         with pytest.raises(NotImplementedError):
             render_rays(tfield, o, d, grid=tgrid, **dict(KW, **bad))
-    # the CP kernel has no backward yet: a gradient request raises
-    with pytest.raises(NotImplementedError):
-        render_rays(tfield, o, d, grid=tgrid, **KW)
+    # the training paths are ported: a gradient request renders with a
+    # graph, and return_compact returns the selection
+    *_, sel = render_rays(tfield, o, d, grid=tgrid, return_compact=True, **KW)
+    assert sel["ray_ok"].shape == (6,) and sel["aux"] is None
 
 
 def test_port_imports_no_jax():
