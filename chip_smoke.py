@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of nerfacc_tpu_torch's render path and TensoCP training step
-on one NVIDIA GPU.
+"""Smoke run of nerfacc_tpu_torch's render path, TensoCP training step and
+hash-NGP training step on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -14,7 +14,13 @@ Phases (any failed check raises, and the script exits nonzero):
    encoder's forward (K1), residual forward (K2) and table gradients (K3,
    K4) at 786,432 samples for both TensoCP levels, march selection at
    12,288 rays x 32 groups x 64 slots (cone 0 and 0.004), re-selection at
-   12,288 rays x 64 -> 32 slots. Median times of both.
+   12,288 rays x 64 -> 32 slots; the hash-table gradient scatter (K7) at
+   the NGP step's 3,145,728 corners for each of the 16 levels (dense and
+   hashed, every 17th index -1), also against a float64 ``index_add_``;
+   the table gather (K8) at 262,144 indices into a 2^19-word table.
+   Median times of both, the time of the one PyTorch call that computes
+   the same function where there is one, and the least time the card
+   could take (bytes over 3.35 TB/s or operations over 67 TFLOP/s).
 4. The render path: four 128x128 views of the procedural scene through
    ``render_image`` with the flagship TensoCP field (random weights from a
    seed), the trained 128^3 occupancy grid, the fused march and the
@@ -25,14 +31,25 @@ Phases (any failed check raises, and the script exits nonzero):
    16x16 crop must agree with the same path run on the CPU.
 5. The training step of ``bench.py --mode train --grid trained
    --fused_march`` with the field's kernels: one 512-ray step on the card
-   against the same step on the CPU (loss and every gradient); 10 steps
+   against the same step on the CPU (loss and every gradient); 5 steps
    of 16,384 rays from bench.py's ray stream (finite losses and
    parameters, K2 and K4 twice and K5 once per step, step time, live
-   samples, samples/s); 10 steps on a repeated batch must lower its loss;
+   samples, samples/s); 5 steps on a repeated batch must lower its loss;
    the plain twin of the whole step (no kernel); ``update_grid`` on the
    full 128^3 grid, warm-up and sampled paths (K1), and the card against
    the CPU on a 32^3 grid with the same cells and jitter.
 6. The ``cp_level_features`` op differentiated on its own (K1, K3).
+7. The training step of ``bench.py --model ngp --mode train --grid trained
+   --fused_march --ngp_pallas_grad`` with the reference NGP field (16
+   levels x 2 features x 2^19 entries) and live-sample compaction of the
+   field (393,216 entries): one 512-ray step on the card against the same
+   step on the CPU (2^15 entries per level; loss and every gradient); 10
+   steps of 16,384 rays (finite losses and parameters, K7 16 times and K5
+   once per step, none of the CP kernels); 10 steps on a repeated batch
+   must lower its loss; the same step with no kernel; one 128x128 request
+   through ``render_image`` with the NGP field.
+8. ``scripts/bench_hash_torch.py r5gather`` (K8 beside PyTorch's
+   indexing).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' launches (in all and per path), errors and times as
@@ -101,7 +118,8 @@ CP_GRAD_REL = 1e-5
 # The training step: bench.py --mode train --grid trained --fused_march at
 # full width, single-stage cull (bench.py:143-203, 276-311).
 TRAIN_RAYS = 16384
-TRAIN_STEPS = 10
+TRAIN_STEPS = 5  # TensoCP steps
+NGP_STEPS = 10
 TRAIN_KW = dict(
     scene_aabb=AABB,
     render_step_size=5e-3,
@@ -120,6 +138,23 @@ CHECK_RAYS = 512  # the card-vs-CPU step
 # binary cell may differ only within that band of the threshold.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_L2 = 1e-4, 1e-2
 OCC_RTOL = 5e-2
+
+# The hash-NGP step: bench.py --model ngp adds live-sample compaction of the
+# field at half the sample budget (bench.py:208-212).
+NGP_FIELD_BUDGET = TRAIN_RAYS * 48 // 2
+NGP_LEVELS, NGP_LOG2_T = 16, 19
+B_CORNERS = 8 * NGP_FIELD_BUDGET  # corners per level and step
+GATHER_N = 262144  # K8: indices into one level's table
+# K7 vs index_add_: both sum the same f32 terms, the kernel in atomic
+# order. A level's entry takes up to B / 4913 ~ 640 terms of order 1:
+# 1e-5 x max|dT|, as for the CP gradients; the same against float64.
+HASH_GRAD_REL = 1e-5
+# Card vs CPU, NGP step: the heads are plain f32 and no bf16 rounding can
+# flip; sums run in another order. Loss within 1e-5 relative, each
+# gradient within 1e-3 in L2 norm.
+NGP_LOSS_RTOL, NGP_GRAD_L2 = 1e-5, 1e-3
+# the card's published peaks, for the least time a kernel could take
+HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 
 
 def smi_line() -> str:
@@ -172,6 +207,22 @@ def median_ms(fn, iters: int = 20) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the f32 operations over the peak rate outside the tensor cores."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def _sum_bounds(bounds) -> dict:
+    """The bound of several launches timed together, named for the largest."""
+    return dict(bound_ms=sum(b["bound_ms"] for b in bounds),
+                bound_by=max(bounds, key=lambda b: b["bound_ms"])["bound_by"])
+
+
 def _max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -213,6 +264,7 @@ def phase_kernels(dev: torch.device) -> list:
     xu_np[64:128] = 1.0  # u == G - 1: the last node, one tap
     xu = torch.as_tensor(xu_np, device=dev)
     cp_ms = cp_plain_ms = cp_err = 0.0
+    cp_bounds = []
     for g, r in ((128, 64), (512, 128)):
         tables = [
             torch.as_tensor(rng.randn(g, r).astype(np.float32) * 0.2,
@@ -225,15 +277,23 @@ def phase_kernels(dev: torch.device) -> list:
         err = _check_close(f"cp_level_features G={g} R={r}", got, want,
                            0.0, CP_ATOL)
         ms = median_ms(lambda: cp_level_features(xu, *tables))
-        pms = median_ms(lambda: cp_level_features_plain(xu, *tables), 5)
+        pms = median_ms(lambda: cp_level_features_plain(xu, *tables), 3)
+        # reads xu and the tables, writes (B, R) f32; per output two taps
+        # per axis (3 flop each) and two products
+        b = bound(4 * (3 * B_SAMPLES + 3 * g * r + B_SAMPLES * r),
+                  11 * B_SAMPLES * r)
+        cp_bounds.append(b)
         print(f"K1 cp_level_features B={B_SAMPLES} G={g} R={r}: "
-              f"kernel {ms:.4f} ms  plain {pms:.4f} ms  max_abs_err {err:.3e}")
+              f"kernel {ms:.4f} ms  plain {pms:.4f} ms  bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})  max_abs_err "
+              f"{err:.3e}")
         cp_ms, cp_plain_ms, cp_err = cp_ms + ms, cp_plain_ms + pms, max(cp_err, err)
     report.append(dict(
         name="cp_level_features", route="cuda",
         source="nerfacc_tpu_torch/csrc/cp_encoder.cu",
         replaces="nerfacc_tpu/ops/cp_encoder.py:173",
         max_abs_err=cp_err, ms=cp_ms, plain_ms=cp_plain_ms,
+        library_ms=None, **_sum_bounds(cp_bounds),
     ))
     report += check_cp_training_kernels(dev, rng, xu)
 
@@ -266,12 +326,19 @@ def phase_kernels(dev: torch.device) -> list:
               f"cone={cone}: kernel {ms:.4f} ms  plain {pms:.4f} ms  "
               f"max_abs_err {err:.3e}")
         sel[cone] = (ms, pms, err)
+    # reads live (R, G) i32, the group size and t_min per ray; writes three
+    # (R, K) f32 and the (R, K) bool; ~10 flop per slot (three lattice
+    # points at cone 0)
+    select_bound = bound(
+        R_SLICE * (4 * G_PROBE + 8) + R_SLICE * K_SLOTS * 13,
+        10 * R_SLICE * K_SLOTS)
     report.append(dict(
         name="fused_select_grouped", route="cuda",
         source="nerfacc_tpu_torch/csrc/march_select.cu",
         replaces="nerfacc_tpu/ops/march_select.py:136",
         max_abs_err=max(v[2] for v in sel.values()),
-        ms=sel[0.0][0], plain_ms=sel[0.0][1],
+        ms=sel[0.0][0], plain_ms=sel[0.0][1], library_ms=None,
+        **select_bound,
     ))
 
     # K6: stage-2 re-selection
@@ -300,8 +367,12 @@ def phase_kernels(dev: torch.device) -> list:
         name="fused_reselect", route="cuda",
         source="nerfacc_tpu_torch/csrc/march_select.cu",
         replaces="nerfacc_tpu/ops/march_select.py:259",
-        max_abs_err=err, ms=ms, plain_ms=pms,
+        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        # reads the (R, K) bool and three (R, K) f32; writes three (R, K2)
+        # f32 and the (R, K2) bool; one add per source slot
+        **bound(R_SLICE * 13 * (K_SLOTS + K_VISIBLE), R_SLICE * K_SLOTS),
     ))
+    report += check_hash_kernels(dev)
     return report
 
 
@@ -320,6 +391,7 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
     )
 
     acc = {k: [0.0, 0.0, 0.0] for k in ("K2", "K3", "K4")}  # ms, plain, err
+    bounds = {k: [] for k in acc}
     for g, r in ((128, 64), (512, 128)):
         tables = [
             torch.as_tensor(rng.randn(g, r).astype(np.float32) * 0.2,
@@ -368,9 +440,21 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
 
         for key, name, err, fn, plain in timed:
             ms = median_ms(fn)
-            pms = median_ms(plain, 5)
+            pms = median_ms(plain, 3)
+            # K2 reads xu and the tables and writes (B, R) f32 plus three
+            # (B, R) bf16; K3 reads xu, the tables and g and writes three
+            # (G, R) f32; K4 reads xu, g and the three bf16 residuals.
+            # ~11 flop per output (K2), ~21 per cotangent (K3, K4: three
+            # axes x (two products, two weighted adds) and roundings)
+            nb = {"K2": 4 * (3 * B_SAMPLES + 3 * g * r) + 10 * B_SAMPLES * r,
+                  "K3": 4 * (3 * B_SAMPLES + 6 * g * r + B_SAMPLES * r),
+                  "K4": 4 * (3 * B_SAMPLES + 3 * g * r) + 10 * B_SAMPLES * r,
+                  }[key]
+            b = bound(nb, (11 if key == "K2" else 21) * B_SAMPLES * r)
+            bounds[key].append(b)
             print(f"{key} {name} {shape}: kernel {ms:.4f} ms  plain "
-                  f"{pms:.4f} ms  max_abs_err {err:.3e}")
+                  f"{pms:.4f} ms  bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})  max_abs_err {err:.3e}")
             a = acc[key]
             a[0], a[1], a[2] = a[0] + ms, a[1] + pms, max(a[2], err)
         del feats, us, want_feats, want_us, timed
@@ -382,26 +466,129 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
         dict(name=names[k][0], route="cuda",
              source="nerfacc_tpu_torch/csrc/cp_encoder.cu",
              replaces=f"nerfacc_tpu/ops/cp_encoder.py:{names[k][1]}",
-             max_abs_err=acc[k][2], ms=acc[k][0], plain_ms=acc[k][1])
+             max_abs_err=acc[k][2], ms=acc[k][0], plain_ms=acc[k][1],
+             library_ms=None, **_sum_bounds(bounds[k]))
         for k in ("K2", "K3", "K4")
     ]
+
+
+def check_hash_kernels(dev) -> list:
+    """K7 against its twin and a float64 ``index_add_`` at the NGP step's
+    shape, for every level of the reference field (points uniform in the
+    unit cube, so levels 0-4 are dense with few entries and 5-15 hashed
+    over 2^19; every 17th index -1); K8 against ``table[idx]``."""
+    from nerfacc_tpu_torch.models import hash_grid_indices
+    from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
+    from nerfacc_tpu_torch.ops import (
+        hash_grad_scatter,
+        hash_grad_scatter_plain,
+        table_gather,
+        table_gather_plain,
+    )
+
+    rng = np.random.RandomState(SEED + 2)
+    T = 1 << NGP_LOG2_T
+    res = _level_resolutions(NGP_LEVELS, 16, 1.4472692012786865)
+    dense = (res + 1) ** 3 <= T
+    x = torch.as_tensor(rng.rand(NGP_FIELD_BUDGET, 3).astype(np.float32),
+                        device=dev)
+    flat_idx, _ = hash_grid_indices(
+        x, torch.as_tensor(res, device=dev), torch.as_tensor(dense, device=dev),
+        T)
+    v = torch.as_tensor(rng.randn(B_CORNERS, 2).astype(np.float32),
+                        device=dev)
+    out = torch.empty((T, 2), dtype=torch.float32, device=dev)
+    acc = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, max_abs_err=0.0)
+    # reads idx (B,) i32 and v (B, 2) f32, writes the (T, 2) f32 table; two
+    # adds per corner
+    level_bound = bound(12 * B_CORNERS + 8 * T, 2 * B_CORNERS)
+    for level in range(NGP_LEVELS):
+        sl = slice(level * 8, level * 8 + 8)
+        idx = (flat_idx[:, sl] - level * T).reshape(-1).contiguous()
+        idx[::17] = -1
+        live = idx >= 0
+        idx_lib = torch.where(live, idx, torch.zeros_like(idx)).long()
+        v_lib = v * live[:, None]
+        got = hash_grad_scatter(idx, v, T)
+        want = hash_grad_scatter_plain(idx, v, T)
+        want64 = torch.zeros((T, 2), dtype=torch.float64, device=dev)
+        want64.index_add_(0, idx_lib, v_lib.double())
+        torch.cuda.synchronize()
+        scale = float(want64.abs().max())
+        tol = HASH_GRAD_REL * scale
+        err = _check_close(f"K7 level {level} vs twin", got, want, 0.0, tol)
+        err64 = _check_close(f"K7 level {level} vs float64", got.double(),
+                             want64, 0.0, tol)
+        del want64
+        ms = median_ms(lambda: hash_grad_scatter(idx, v, T))
+        pms = median_ms(lambda: hash_grad_scatter_plain(idx, v, T), 3)
+        lms = median_ms(lambda: out.zero_().index_add_(0, idx_lib, v_lib))
+        n_entries = int((res[level] + 1) ** 3) if dense[level] else T
+        print(f"K7 hash_grad_scatter level {level} "
+              f"({'dense' if dense[level] else 'hashed'}, res {res[level]}, "
+              f"{n_entries} entries) B={B_CORNERS}: kernel {ms:.4f} ms  plain "
+              f"{pms:.4f} ms  index_add_ {lms:.4f} ms  bound "
+              f"{level_bound['bound_ms']:.4f} ms  max abs err {err:.3e} = "
+              f"{err / scale:.2e} x max|dT| {scale:.3e} (vs float64 "
+              f"{err64 / scale:.2e})")
+        acc["ms"] += ms
+        acc["plain_ms"] += pms
+        acc["library_ms"] += lms
+        acc["max_abs_err"] = max(acc["max_abs_err"], err)
+    del flat_idx, v, out
+    torch.cuda.empty_cache()
+    report = [dict(
+        name="hash_grad_scatter", route="cuda",
+        source="nerfacc_tpu_torch/csrc/hash_scatter.cu",
+        replaces="nerfacc_tpu/ops/hash_gather.py:123",
+        **acc, **_sum_bounds([level_bound] * NGP_LEVELS),
+    )]
+    print(f"K7 hash_grad_scatter, {NGP_LEVELS} levels: kernel "
+          f"{acc['ms']:.4f} ms  plain {acc['plain_ms']:.4f} ms  index_add_ "
+          f"{acc['library_ms']:.4f} ms  bound "
+          f"{report[0]['bound_ms']:.4f} ms")
+
+    table = torch.as_tensor(rng.randint(0, 2 ** 31, T).astype(np.int32),
+                            device=dev)
+    idx = torch.as_tensor(rng.randint(0, T, GATHER_N).astype(np.int32),
+                          device=dev)
+    idx_long = idx.long()
+    got = table_gather(idx, table)
+    torch.cuda.synchronize()
+    _check_equal("K8 table_gather", got, table_gather_plain(idx, table))
+    ms = median_ms(lambda: table_gather(idx, table))
+    pms = median_ms(lambda: table_gather_plain(idx, table))
+    lms = median_ms(lambda: table[idx_long])
+    # reads the indices and the table, writes the words; no arithmetic
+    b = bound(4 * (2 * GATHER_N + T), 0)
+    print(f"K8 table_gather N={GATHER_N} T={T}: kernel {ms:.4f} ms = "
+          f"{ms * 1e6 / GATHER_N:.4f} ns/idx  plain {pms:.4f} ms  table[idx] "
+          f"{lms:.4f} ms = {lms * 1e6 / GATHER_N:.4f} ns/idx  bound "
+          f"{b['bound_ms']:.5f} ms  bit-equal")
+    report.append(dict(
+        name="table_gather", route="cuda",
+        source="nerfacc_tpu_torch/csrc/table_gather.cu",
+        replaces="scripts/bench_hash.py:379",
+        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lms, **b,
+    ))
+    return report
 
 
 def make_requests(dev: torch.device) -> list:
     """Four 128x128 views of the procedural scene: (origins, directions)."""
     from nerfacc_tpu_torch.datasets import generate_rays, look_at_poses
 
-    poses = look_at_poses(N_VIEWS, radius=3.2, elevation_deg=20.0)
+    poses = look_at_poses(N_VIEWS, radius=3.2, elevation_deg=20.0,
+                          device=dev)
     focal = 0.5 * IMAGE / np.tan(0.5 * np.deg2rad(45.0))
     K = torch.tensor([[focal, 0, IMAGE / 2], [0, focal, IMAGE / 2],
-                      [0, 0, 1]], dtype=torch.float32)
-    y, x = torch.meshgrid(torch.arange(IMAGE), torch.arange(IMAGE),
-                          indexing="ij")
+                      [0, 0, 1]], dtype=torch.float32, device=dev)
+    y, x = torch.meshgrid(torch.arange(IMAGE, device=dev),
+                          torch.arange(IMAGE, device=dev), indexing="ij")
     out = []
     for pose in poses:
         rays = generate_rays(x.reshape(-1), y.reshape(-1), pose, K)
-        out.append((rays.origins.contiguous().to(dev),
-                    rays.viewdirs.contiguous().to(dev)))
+        out.append((rays.origins.contiguous(), rays.viewdirs.contiguous()))
     return out
 
 
@@ -411,8 +598,8 @@ def make_scene(dev: torch.device, use_kernel: bool):
 
     field = TensoCPRadianceField(
         aabb=AABB, use_kernel=use_kernel,
-        generator=torch.Generator().manual_seed(SEED),
-    ).to(dev)
+        generator=torch.Generator().manual_seed(SEED), device=dev,
+    )
     asset = np.load(ROOT / "bench_assets" / "trained_grid.npz")
     grid = grid_from_arrays(AABB, asset["binary"], asset["occs"], device=dev)
     return field, grid
@@ -470,7 +657,8 @@ def kernel_counters() -> dict:
 
     return {name: getattr(ops, name) for name in (
         "cp_level_features", "cp_level_features_res", "cp_level_grads",
-        "cp_level_grads_res", "fused_select_grouped", "fused_reselect")}
+        "cp_level_grads_res", "fused_select_grouped", "fused_reselect",
+        "hash_grad_scatter", "table_gather")}
 
 
 def drive(path: str, fn, must_launch, must_not_launch=()):
@@ -527,7 +715,8 @@ def phase_slice(dev: torch.device) -> dict:
         f"the render of {N_VIEWS} requests",
         lambda: _serve(field, grid, requests, True),
         ("cp_level_features", "fused_select_grouped", "fused_reselect"),
-        ("cp_level_features_res", "cp_level_grads", "cp_level_grads_res"),
+        ("cp_level_features_res", "cp_level_grads", "cp_level_grads_res",
+         "hash_grad_scatter", "table_gather"),
     )
     plain_outs, plain_ms = _serve(plain_field, grid, requests, False)
 
@@ -665,7 +854,8 @@ def phase_train(dev) -> dict:
         lambda: _timed_steps(field, opt, grid, batch[1:], kw),
         ("cp_level_features_res", "cp_level_grads_res",
          "fused_select_grouped"),
-        ("cp_level_features", "cp_level_grads", "fused_reselect"),
+        ("cp_level_features", "cp_level_grads", "fused_reselect",
+         "hash_grad_scatter", "table_gather"),
     )
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = {"cp_level_features_res": 2, "cp_level_grads_res": 2,
@@ -786,6 +976,163 @@ def phase_grid_update(dev, field, grid) -> dict:
     return paths
 
 
+def make_ngp_scene(dev, pallas_grad: bool, log2_hashmap_size=NGP_LOG2_T):
+    """The reference NGP field (16 levels x 2 features, heads 64 wide, SH
+    degree 4; random weights from the seed) and the trained grid."""
+    from nerfacc_tpu_torch.convert import grid_from_arrays
+    from nerfacc_tpu_torch.models import NGPRadianceField
+
+    field = NGPRadianceField(
+        aabb=AABB, n_levels=NGP_LEVELS, log2_hashmap_size=log2_hashmap_size,
+        pallas_grad=pallas_grad,
+        generator=torch.Generator().manual_seed(SEED), device=dev,
+    )
+    asset = np.load(ROOT / "bench_assets" / "trained_grid.npz")
+    grid = grid_from_arrays(AABB, asset["binary"], asset["occs"], device=dev)
+    return field, grid
+
+
+def _ngp_kw(use_kernels: bool, n_rays: int) -> dict:
+    return dict(_train_kw(use_kernels, n_rays),
+                field_samples_budget=n_rays * 48 // 2)
+
+
+def check_ngp_card_vs_cpu(dev, o, d, px) -> None:
+    """One NGP step of CHECK_RAYS rays on the card (K5, K7) and on the CPU
+    (the same path, plain twins), from the same weights; 2^15 entries per
+    level keep the CPU side small."""
+    from nerfacc_tpu_torch import train_step
+
+    results = []
+    for device in (dev, torch.device("cpu")):
+        field, grid = make_ngp_scene(device, True, log2_hashmap_size=15)
+        opt = torch.optim.Adam(field.parameters(), lr=LR)
+        loss, n = train_step(field, opt, grid, o.to(device), d.to(device),
+                             px.to(device), **_ngp_kw(True, CHECK_RAYS))
+        grads = {k: p.grad.cpu() for k, p in field.named_parameters()}
+        results.append((float(loss), int(n), grads))
+    (loss_c, n_c, g_c), (loss_h, n_h, g_h) = results
+    rel = abs(loss_c - loss_h) / loss_h
+    worst = max((_rel_l2(g_c[k], g_h[k]), k) for k in g_h)
+    table = _rel_l2(g_c["encoder.table"], g_h["encoder.table"])
+    print(f"NGP step card vs CPU ({CHECK_RAYS} rays): loss {loss_c:.7f} vs "
+          f"{loss_h:.7f} (rel {rel:.2e}); live samples {n_c} vs {n_h}; "
+          f"worst gradient rel L2 err {worst[0]:.2e} ({worst[1]}); table "
+          f"gradient rel L2 err {table:.2e}")
+    if rel > NGP_LOSS_RTOL:
+        raise AssertionError(f"NGP loss card vs CPU: rel err {rel:.2e}")
+    if worst[0] > NGP_GRAD_L2:
+        raise AssertionError(f"NGP gradient {worst[1]} card vs CPU: rel L2 "
+                             f"err {worst[0]:.2e}")
+    if n_c != n_h:
+        raise AssertionError(f"live samples card {n_c} vs CPU {n_h}")
+
+
+def phase_ngp(dev) -> dict:
+    """The hash-NGP training step at full width, its twin without kernels
+    and one NGP render request; returns the launch counts of each path."""
+    from nerfacc_tpu_torch import render_rays
+
+    paths = {}
+    o, d, px = bench_stream(dev, NGP_STEPS + 1)
+    check_ngp_card_vs_cpu(dev, o[0, :CHECK_RAYS], d[0, :CHECK_RAYS],
+                          px[0, :CHECK_RAYS])
+
+    field, grid = make_ngp_scene(dev, pallas_grad=True)
+    n_table = field.encoder.table.numel()
+    print(f"NGP field: table {tuple(field.encoder.table.shape)} = {n_table} "
+          f"floats ({n_table * 4 / 1e6:.1f} MB), "
+          f"{sum(p.numel() for p in field.parameters()) - n_table} head "
+          "weights")
+    opt = torch.optim.Adam(field.parameters(), lr=LR)
+    kw = _ngp_kw(True, TRAIN_RAYS)
+    batch = [(o[i], d[i], px[i]) for i in range(NGP_STEPS + 1)]
+    _timed_steps(field, opt, grid, batch[:1], kw)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    others = ("cp_level_features", "cp_level_features_res", "cp_level_grads",
+              "cp_level_grads_res", "fused_reselect", "table_gather")
+    rec, paths["ngp train"] = drive(
+        f"{NGP_STEPS} NGP training steps",
+        lambda: _timed_steps(field, opt, grid, batch[1:], kw),
+        ("hash_grad_scatter", "fused_select_grouped"), others,
+    )
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {"hash_grad_scatter": NGP_LEVELS, "fused_select_grouped": 1}
+    for i, (ms, loss, n, counts) in enumerate(rec):
+        if not np.isfinite(loss):
+            raise AssertionError(f"NGP step {i}: loss {loss}")
+        for k, want in per_step.items():
+            if counts[k] != want:
+                raise AssertionError(f"NGP step {i}: {k} launched "
+                                     f"{counts[k]} times, expected {want}")
+    _check_finite_params("NGP training", field)
+    ms = [r[0] for r in rec]
+    live = [r[2] for r in rec]
+    with torch.no_grad():
+        *_, sel = render_rays(
+            field, *batch[1][:2], grid=grid, aux=batch[1][2],
+            return_compact=True, return_extras=True, **kw)
+    dropped = int(sel["extras"]["field_budget_dropped"])
+    print(f"NGP steps (kernels, {TRAIN_RAYS} rays): losses "
+          f"{[round(r[1], 6) for r in rec]}")
+    print(f"NGP step (kernels): median {statistics.median(ms):.3f} ms "
+          f"(min {min(ms):.3f}, max {max(ms):.3f}); live samples per step "
+          f"median {statistics.median(live)} of a field budget "
+          f"{NGP_FIELD_BUDGET}, field_budget_dropped {dropped}; "
+          f"{sum(live) / sum(ms) * 1e3:.0f} samples/s; peak memory "
+          f"{peak_gb:.2f} GB")
+
+    # a repeated batch: the loss after NGP_STEPS steps is below step 0's
+    losses = [r[1] for r in _timed_steps(
+        field, opt, grid, batch[:1] * (NGP_STEPS + 1), kw)]
+    print(f"NGP repeated batch: loss {losses[0]:.7f} -> {losses[-1]:.7f} "
+          f"after {NGP_STEPS} steps")
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the NGP loss did not fall on a repeated batch")
+
+    # one 128x128 request through render_image with the trained-on field
+    request = make_requests(dev)[0]
+    (colors, opacities, depths), paths["ngp render"] = drive(
+        "one NGP render request",
+        lambda: _render(field, grid, *request, True),
+        ("fused_select_grouped", "fused_reselect"),
+        tuple(k for k in kernel_counters()
+              if k not in ("fused_select_grouped", "fused_reselect")),
+    )
+    _check_outputs("NGP request", colors, opacities, depths, CHUNK)
+    print(f"NGP request: mean opacity {float(opacities.mean()):.4f}, "
+          "outputs finite, opacities in [0, 1]")
+    del field, opt
+
+    # the same step with no kernel: index_add_ table gradient, unfused march
+    pfield, _ = make_ngp_scene(dev, pallas_grad=False)
+    popt = torch.optim.Adam(pfield.parameters(), lr=LR)
+    pkw = _ngp_kw(False, TRAIN_RAYS)
+    _timed_steps(pfield, popt, grid, batch[:1], pkw)  # warm-up
+    prec, _ = drive("plain NGP training steps",
+                    lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw),
+                    (), tuple(kernel_counters()))
+    _check_finite_params("plain NGP training", pfield)
+    pms = [r[0] for r in prec]
+    print(f"NGP step (plain): median {statistics.median(pms):.3f} ms over "
+          f"{len(pms)} steps; live samples {[r[2] for r in prec]}")
+    return paths
+
+
+def phase_gather_script(dev) -> dict:
+    """``scripts/bench_hash_torch.py r5gather``: K8 on its script path."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import bench_hash_torch
+
+    _, counts = drive(
+        "bench_hash_torch r5gather",
+        lambda: bench_hash_torch.r5gather(device=dev),
+        ("table_gather",),
+        tuple(k for k in kernel_counters() if k != "table_gather"),
+    )
+    return {"r5gather": counts}
+
+
 def phase_op_backward(dev) -> dict:
     """The ``cp_level_features`` op differentiated at the slice's level-1
     shape: K1 forward, K3 backward (the model's training step takes the
@@ -804,7 +1151,7 @@ def phase_op_backward(dev) -> dict:
         "the cp_level_features op's backward",
         lambda: cp_level_features(xu, *tables).backward(cot),
         ("cp_level_features", "cp_level_grads"),
-        ("cp_level_features_res", "cp_level_grads_res"),
+        ("cp_level_features_res", "cp_level_grads_res", "hash_grad_scatter"),
     )
     if not all(bool(torch.isfinite(t.grad).all()) for t in tables):
         raise AssertionError("cp_level_features backward: non-finite grads")
@@ -818,6 +1165,8 @@ def main() -> None:
     paths = {"render": phase_slice(dev)}
     paths.update(phase_train(dev))
     paths.update(phase_op_backward(dev))
+    paths.update(phase_ngp(dev))
+    paths.update(phase_gather_script(dev))
     for entry in report:
         by_path = {p: c[entry["name"]] for p, c in paths.items()
                    if c[entry["name"]]}

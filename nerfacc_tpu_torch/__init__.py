@@ -1,11 +1,15 @@
 """nerfacc_tpu_torch: the PyTorch + CUDA port of nerfacc_tpu, for Hopper.
 
-The render path and the TensoCP training step of the JAX package —
-occupancy-grid march and grid update, the TensoCP field, dense volume
+The render path and the TensoCP and hash-NGP training steps of the JAX
+package — occupancy-grid march and grid update, the TensoCP and
+Instant-NGP fields, live-sample compaction of the field, dense volume
 rendering with its closed-form backward — in PyTorch, with hand-written
-CUDA kernels (``ops/``) for march slot selection, stage-2 re-selection and
-the CP encoder's forward and table gradients. The kernels are built with
-``nvcc`` at first use; CPU tensors take each kernel's plain PyTorch twin.
+CUDA kernels (``ops/``) for march slot selection, stage-2 re-selection,
+the CP encoder's forward and table gradients, the hash table's gradient
+scatter and the table-gather floor. The kernels are built with ``nvcc`` at
+first use; CPU tensors take each kernel's plain PyTorch twin. Entry points
+that make tensors (grids, fields, poses) make them on the CUDA device
+unless the caller passes ``device``.
 """
 
 from .contraction import ContractionType, contract, contract_inv
@@ -18,7 +22,12 @@ from .grid import (
     update_grid,
     with_binary,
 )
-from .ops import cp_level_features, cp_level_features_res
+from .ops import (
+    cp_level_features,
+    cp_level_features_res,
+    hash_encode_lookup,
+    hash_grad_scatter,
+)
 from .intersection import ray_aabb_intersect
 from .ray_marching import (
     RaySegments,
@@ -53,6 +62,8 @@ __all__ = [
     "dilate_binary",
     "every_n_step",
     "gather_rows_dense",
+    "hash_encode_lookup",
+    "hash_grad_scatter",
     "march_rays",
     "probe_live_groups",
     "query_grid",

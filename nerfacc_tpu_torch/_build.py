@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: every one returns the cudaError_t of its launch
 _SIGNATURES = {
     # xu, t0, t1, t2, out, B, G, R, stream
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "nerfacc_select_grouped": (_P,) * 7 + (_I,) * 3 + (_F,) * 5 + (_P,),
     # masks, ts, te, dt, ts2, te2, dt2, ok2, R, K, K2, stream
     "nerfacc_reselect": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # idx, v, out, B, T, stream
+    "nerfacc_hash_grad_scatter": (_P,) * 3 + (_L, _I, _P),
+    # idx, table, out, N, T, stream
+    "nerfacc_table_gather": (_P,) * 3 + (_L, _I, _P),
 }
 
 # where the CUDA toolkit installs nvcc when it is not on PATH

@@ -51,11 +51,13 @@ def look_at_poses(
     radius: float,
     elevation_deg: float = 30.0,
     hemisphere_seed: Optional[int] = None,
+    device=None,
 ) -> torch.Tensor:
     """(n, 3, 4) f32 camera-to-world poses looking at the origin
     (Blender-style -z forward, +y up in camera space): a circle at
     ``elevation_deg``, or with ``hemisphere_seed`` poses drawn uniformly
-    over the upper hemisphere (elevations 5-75 deg)."""
+    over the upper hemisphere (elevations 5-75 deg). On ``device`` (None:
+    the CUDA device)."""
     if hemisphere_seed is not None:
         rng = np.random.RandomState(hemisphere_seed)
         phis = rng.uniform(0, 2 * np.pi, n_views)
@@ -78,4 +80,7 @@ def look_at_poses(
         # columns: x=right, y=up, z=backward (OpenGL)
         R = np.stack([right, true_up, -forward], axis=-1)
         poses.append(np.concatenate([R, eye[:, None]], axis=-1))
-    return torch.as_tensor(np.stack(poses), dtype=torch.float32)
+    return torch.as_tensor(
+        np.stack(poses), dtype=torch.float32,
+        device=torch.device("cuda") if device is None else device,
+    )

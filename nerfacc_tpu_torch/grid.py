@@ -141,9 +141,11 @@ def create_grid(
     resolution: Union[int, Sequence[int]] = 128,
     contraction_type: ContractionType = ContractionType.AABB,
     occupied: bool = False,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device, None] = None,
 ) -> OccupancyGrid:
-    """Create a fresh occupancy grid (all cells ``occupied`` or empty)."""
+    """Create a fresh occupancy grid (all cells ``occupied`` or empty) on
+    ``device`` (None: the CUDA device)."""
+    device = torch.device("cuda") if device is None else device
     if isinstance(resolution, int):
         resolution = (resolution,) * 3
     resolution = tuple(int(r) for r in resolution)

@@ -19,7 +19,6 @@ from the CP encoder's backward kernels.
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -27,7 +26,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cp_encoder import cp_level_features_res
-from .ngp import contract_to_unisphere, spherical_harmonics_deg4, trunc_exp
+from .ngp import (
+    contract_to_unisphere,
+    lecun_normal_linear,
+    spherical_harmonics_deg4,
+    trunc_exp,
+)
 
 
 def hat_basis(x: torch.Tensor, grid_size: int) -> torch.Tensor:
@@ -103,14 +107,10 @@ class _HeadMLP(nn.Module):
     ):
         super().__init__()
         dims = [in_dim] + [width] * n_hidden + [out_dim]
-        self.layers = nn.ModuleList()
-        for d_in, d_out in zip(dims[:-1], dims[1:]):
-            layer = nn.Linear(d_in, d_out, bias=False)
-            # lecun normal, like flax's Dense default
-            std = 1.0 / math.sqrt(d_in) / 0.87962566103423978
-            nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=generator)
-            self.layers.append(layer)
+        self.layers = nn.ModuleList(
+            lecun_normal_linear(d_in, d_out, generator)
+            for d_in, d_out in zip(dims[:-1], dims[1:])
+        )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.bfloat16)
@@ -126,7 +126,8 @@ class TensoCPRadianceField(nn.Module):
 
     ``query_density(x)`` -> (N, 1) density; ``forward(x, d)`` ->
     (rgb (N, 3), density (N, 1)). Parameters are drawn from ``generator``
-    on the CPU; move the module with ``.to(device)``.
+    on the CPU and then moved to ``device`` (None: the CUDA device), so a
+    seed gives the same weights on both.
     """
 
     def __init__(
@@ -140,6 +141,7 @@ class TensoCPRadianceField(nn.Module):
         quant_int8: bool = False,
         density_bias: float = -1.0,
         generator: Optional[torch.Generator] = None,
+        device=None,
     ):
         super().__init__()
         if quant_int8:
@@ -158,6 +160,7 @@ class TensoCPRadianceField(nn.Module):
                                  generator=generator)
         head_in = geo_feat_dim + (16 if use_viewdirs else 0)
         self.mlp_head = _HeadMLP(head_in, 3, n_hidden=2, generator=generator)
+        self.to(torch.device("cuda") if device is None else device)
 
     def _contract(self, x):
         if self.unbounded:

@@ -12,14 +12,22 @@ from .cp_encoder import (
     cp_level_grads_res,
     cp_level_grads_res_plain,
 )
+from .hash_gather import (
+    hash_encode_lookup,
+    hash_grad_scatter,
+    hash_grad_scatter_plain,
+)
 from .march_select import (
     fused_reselect,
     fused_reselect_plain,
     fused_select_grouped,
     fused_select_grouped_plain,
 )
+from .sample_compact import compact_live_slots, expand_compact
+from .table_gather import table_gather, table_gather_plain
 
 __all__ = [
+    "compact_live_slots",
     "cp_level_features",
     "cp_level_features_plain",
     "cp_level_features_res",
@@ -29,8 +37,14 @@ __all__ = [
     "cp_level_grads_plain",
     "cp_level_grads_res",
     "cp_level_grads_res_plain",
+    "expand_compact",
     "fused_reselect",
     "fused_reselect_plain",
     "fused_select_grouped",
     "fused_select_grouped_plain",
+    "hash_encode_lookup",
+    "hash_grad_scatter",
+    "hash_grad_scatter_plain",
+    "table_gather",
+    "table_gather_plain",
 ]

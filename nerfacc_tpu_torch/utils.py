@@ -5,11 +5,11 @@ layout: t-range, strided probes and empty-ray compaction, the grouped
 march, the optional two-stage visibility cull with stage-2 re-selection,
 then the field query and the composite. ``render_image`` chunks a whole
 image through it without gradients. The training step renders with
-``return_compact=True`` and the target pixels as ``aux``.
+``return_compact=True`` and the target pixels as ``aux``; with
+``field_samples_budget`` the field is evaluated on the live slots only.
 
-Paths that wait for later ports raise ``NotImplementedError``: live-sample
-compaction of the field (``field_samples_budget``) needs
-``ops/sample_compact.py``, and ``timestamps`` needs the D-NeRF field.
+``timestamps`` waits for the D-NeRF field and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .ops.sample_compact import compact_live_slots, expand_compact
 from .ray_marching import (
     _resolve_t_range,
     march_rays,
@@ -53,6 +54,39 @@ def _dense_field_query(field, x, rays_d=None, density_only=False):
     d = torch.broadcast_to(rays_d[:, None, :], (R, K, 3)).reshape(R * K, 3)
     rgbs, sigmas = field(xf, d)
     return rgbs.reshape(R, K, 3), sigmas.reshape(R, K)
+
+
+def _compact_field_query(
+    field, rays_o, rays_d, t_starts, t_ends, masks, m_budget,
+    density_only=False,
+):
+    """Query the field on the live slots only (gather-bound encoders).
+
+    Compacts the (R, K) slot buffer's live samples into ``m_budget``
+    entries, evaluates the field there, and expands rgb and sigma back to
+    the dense layout. Returns ``(rgbs (R, K, 3), sigmas (R, K), masks,
+    dropped)``, or ``(sigmas, masks, dropped)`` with ``density_only``:
+    ``masks`` excludes any over-budget drops and ``dropped`` counts them.
+    """
+    R, K = masks.shape
+    m_budget = min(m_budget, R * K)  # a budget beyond the buffer is free
+    pos, ok, rank, keep, dropped = compact_live_slots(masks, m_budget)
+    tc = ((t_starts + t_ends) * 0.5).reshape(-1)[pos]  # (M,)
+    ridx = pos // K  # (M,) each compact sample's ray
+    dc = rays_d[ridx]
+    xc = rays_o[ridx] + tc[:, None] * dc
+    if density_only:
+        vals = field.query_density(xc).reshape(-1, 1).to(torch.float32)
+    else:
+        rgbs_c, sigmas_c = field(xc, dc)
+        vals = torch.cat(
+            [rgbs_c.to(torch.float32), sigmas_c.reshape(-1, 1)], dim=1
+        )  # (M, 4)
+    dense = expand_compact(vals, rank, keep.reshape(-1), pos, ok)
+    if density_only:
+        return dense[:, 0].reshape(R, K), keep, dropped
+    return (dense[:, :3].reshape(R, K, 3), dense[:, 3].reshape(R, K), keep,
+            dropped)
 
 
 def render_rays(
@@ -95,8 +129,8 @@ def render_rays(
     stratified jitter. Returns ``(colors, opacities, depths, n_samples)``,
     with ``n_samples`` the live sample count, plus an extras dict of the
     per-slot ``weights / t_starts / t_ends / deltas / masks`` (of the
-    compacted ray set) and the ``field_budget_dropped`` count (0: the
-    field is not compacted) when ``return_extras``.
+    compacted ray set) and the ``field_budget_dropped`` count when
+    ``return_extras``.
 
     ``samples_budget`` sets ``K = ceil(budget / n_rays)`` slots per ray.
     ``compact_rays_fraction`` (with ``grid`` and ``coarse_stride > 1``)
@@ -106,7 +140,11 @@ def render_rays(
     ``prefilter_sigma`` runs the two-stage render: a density pass, the
     visibility cull, and re-selection into ``K2`` slots per ray.
     ``use_pallas=True`` routes the march selection and the re-selection
-    through the CUDA kernels.
+    through the CUDA kernels. ``field_samples_budget`` evaluates the field
+    on the march-live slots only, compacted into that many entries (for
+    gather-bound encoders; size it above the scene's live count:
+    over-budget samples are dropped front to back per ray and counted in
+    ``field_budget_dropped``).
 
     ``aux`` is an optional (n_rays, D) per-ray payload (e.g. the target
     pixels), gathered with the compacted rays. ``return_compact`` skips the
@@ -117,10 +155,6 @@ def render_rays(
     Rays left out render exactly ``render_bkgd``, so a full-batch loss
     follows algebraically (``training.compact_mse``).
     """
-    if field_samples_budget is not None:
-        raise NotImplementedError(
-            "live-sample compaction (field_samples_budget) is not ported yet"
-        )
     if timestamps is not None:
         raise NotImplementedError("time-conditioned fields are not ported yet")
     n_rays = rays_o.shape[0]
@@ -189,8 +223,17 @@ def render_rays(
         # stage 1: a density pass without gradients -> visibility cull ->
         # re-selection into the smaller visible budget
         with torch.no_grad():
-            x = _dense_positions(rays_o, rays_d, segs.t_starts, segs.t_ends)
-            sigmas = _dense_field_query(field, x, density_only=True)
+            if field_samples_budget is not None:
+                sigmas, keep1, _ = _compact_field_query(
+                    field, rays_o, rays_d, segs.t_starts, segs.t_ends,
+                    segs.masks, field_samples_budget, density_only=True,
+                )
+                segs = segs._replace(masks=keep1)
+            else:
+                x = _dense_positions(
+                    rays_o, rays_d, segs.t_starts, segs.t_ends
+                )
+                sigmas = _dense_field_query(field, x, density_only=True)
             alphas = 1.0 - torch.exp(-sigmas * segs.deltas)
             vis = render_visibility_dense(
                 alphas, segs.masks,
@@ -203,9 +246,18 @@ def render_rays(
             )
 
     t_starts, t_ends, deltas = segs.t_starts, segs.t_ends, segs.deltas
-    x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
-    rgbs, sigmas = _dense_field_query(field, x, rays_d=rays_d)
-    masks = segs.masks
+    if field_samples_budget is not None:
+        rgbs, sigmas, masks, field_dropped = _compact_field_query(
+            field, rays_o, rays_d, t_starts, t_ends, segs.masks,
+            field_samples_budget,
+        )
+    else:
+        x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
+        rgbs, sigmas = _dense_field_query(field, x, rays_d=rays_d)
+        masks = segs.masks
+        field_dropped = torch.zeros(
+            (), dtype=torch.int32, device=masks.device
+        )
     if prefilter_sigma and not two_stage:
         # one field pass: the cull only refines the composite's mask
         alphas = 1.0 - torch.exp(-sigmas.detach() * deltas)
@@ -229,10 +281,7 @@ def render_rays(
         extras = {
             "weights": weights, "t_starts": t_starts, "t_ends": t_ends,
             "deltas": deltas, "masks": masks,
-            # no live-sample compaction of the field yet: nothing dropped
-            "field_budget_dropped": torch.zeros(
-                (), dtype=torch.int32, device=masks.device
-            ),
+            "field_budget_dropped": field_dropped,
         }
 
     if return_compact:

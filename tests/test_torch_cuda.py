@@ -10,7 +10,9 @@ rtol 1e-5 / atol 1e-6 (the march kernels keep the plain chain's f32
 operations; only cumsum order differs); CP features within 1e-6 absolute
 (both sum the same two exact products) and the bf16 residuals equal; CP
 table gradients within 1e-5 of the largest |gradient| (the kernels add
-in atomic order, the plain product in cuBLAS's order).
+in atomic order, the plain product in cuBLAS's order); the hash-table
+scatter within 1e-5 of the largest |sum| (atomic order against
+``index_add_``'s); the table gather bit-equal.
 """
 
 import numpy as np
@@ -19,7 +21,7 @@ import torch
 
 from nerfacc_tpu_torch import _build
 from nerfacc_tpu_torch.convert import grid_from_arrays
-from nerfacc_tpu_torch.models import TensoCPRadianceField
+from nerfacc_tpu_torch.models import NGPRadianceField, TensoCPRadianceField
 from nerfacc_tpu_torch.ops import (
     cp_level_features,
     cp_level_features_plain,
@@ -34,6 +36,10 @@ from nerfacc_tpu_torch.ops import (
     fused_reselect_plain,
     fused_select_grouped,
     fused_select_grouped_plain,
+    hash_grad_scatter,
+    hash_grad_scatter_plain,
+    table_gather,
+    table_gather_plain,
 )
 from nerfacc_tpu_torch.training import train_step
 
@@ -171,7 +177,8 @@ def _small_train_scene(device):
     field = TensoCPRadianceField(
         aabb=aabb, levels=((16, 8), (32, 16)), use_kernel=True,
         density_bias=3.0, generator=torch.Generator().manual_seed(1),
-    ).to(device)
+        device=device,
+    )
     o = rng.randn(64, 3)
     o = 2.5 * o / np.linalg.norm(o, axis=-1, keepdims=True)
     d = -o + rng.randn(64, 3) * 0.8
@@ -210,6 +217,87 @@ def test_train_step_on_card_matches_cpu(cuda_device):
     for k, want in g_h.items():
         err = float(torch.linalg.norm(g_c[k] - want))
         assert err <= 1e-2 * float(torch.linalg.norm(want)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,B", [(512, 3001), (1 << 19, 200003)])
+def test_hash_scatter_kernel_matches_plain(cuda_device, T, B):
+    # ragged B, padding rows (-1), few entries (contention) and many
+    rng = np.random.RandomState(13)
+    idx = rng.randint(0, T, B).astype(np.int32)
+    idx[::17] = -1
+    v = rng.randn(B, 2).astype(np.float32)
+    v[5::29] = 0.0  # pairs the kernel skips
+    idx, v = (torch.as_tensor(a, device=cuda_device) for a in (idx, v))
+    before = hash_grad_scatter.launches
+    got = hash_grad_scatter(idx, v, T)
+    torch.cuda.synchronize()
+    assert hash_grad_scatter.launches == before + 1
+    want = hash_grad_scatter_plain(idx, v, T)
+    want64 = torch.zeros((T, 2), dtype=torch.float64, device=cuda_device)
+    live = idx >= 0
+    want64.index_add_(0, idx[live].long(), v[live].double())
+    scale = float(want64.abs().max())
+    assert float((got - want).abs().max()) <= GRAD_REL * scale
+    assert float((got.double() - want64).abs().max()) <= GRAD_REL * scale
+    # into a slice of a zeroed gradient, added in place
+    grad = torch.zeros((3, T, 2), device=cuda_device)
+    out = hash_grad_scatter(idx, v, T, out=grad[1])
+    assert out.data_ptr() == grad[1].data_ptr()
+    assert float((grad[1] - want).abs().max()) <= GRAD_REL * scale
+    assert not bool(grad[0].any()) and not bool(grad[2].any())
+    with pytest.raises(TypeError):
+        hash_grad_scatter(idx.long(), v, T)
+    with pytest.raises(ValueError):
+        hash_grad_scatter(idx, v, T, out=grad[:, :, 0])
+
+
+@pytest.mark.cuda
+def test_table_gather_kernel_matches_plain(cuda_device):
+    rng = np.random.RandomState(14)
+    T, N = 1 << 19, 262144 + 37
+    table = torch.as_tensor(rng.randint(0, 2 ** 31, T).astype(np.int32),
+                            device=cuda_device)
+    idx = torch.as_tensor(rng.randint(0, T, N).astype(np.int32),
+                          device=cuda_device)
+    before = table_gather.launches
+    got = table_gather(idx, table)
+    torch.cuda.synchronize()
+    assert table_gather.launches == before + 1
+    assert torch.equal(got, table_gather_plain(idx, table))
+    with pytest.raises(TypeError):
+        table_gather(idx, table.float())
+
+
+@pytest.mark.cuda
+def test_ngp_train_step_on_card_matches_cpu(cuda_device):
+    # one small hash-NGP step, table gradient through K7 on the card and
+    # through its twin on the CPU, from the same weights and rays. f32
+    # heads: loss within 1e-5, each gradient within 1e-3 in L2 (sums in
+    # another order; a visibility flip moves more and would show)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        _, grid, (o, d, px), kw = _small_train_scene(device)
+        field = NGPRadianceField(
+            aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0), n_levels=4,
+            log2_hashmap_size=13, pallas_grad=True,
+            generator=torch.Generator().manual_seed(2), device=device)
+        with torch.no_grad():  # a table of order 1: the encoder matters
+            field.encoder.table.mul_(1e4)
+        opt = torch.optim.Adam(field.parameters(), lr=5e-4)
+        k7 = hash_grad_scatter.launches
+        loss, n = train_step(field, opt, grid, o, d, px,
+                             field_samples_budget=64 * 12, **kw)
+        grads = {k: p.grad.detach().cpu() for k, p in field.named_parameters()}
+        results.append((float(loss), int(n), grads,
+                        hash_grad_scatter.launches - k7))
+    (loss_c, n_c, g_c, l_c), (loss_h, n_h, g_h, l_h) = results
+    assert (l_c, l_h) == (4, 0)  # once per level
+    assert abs(loss_c - loss_h) <= 1e-5 * loss_h
+    assert abs(n_c - n_h) <= 2 and n_h > 200
+    for k, want in g_h.items():
+        err = float(torch.linalg.norm(g_c[k] - want))
+        assert err <= 1e-3 * float(torch.linalg.norm(want)), k
 
 
 @pytest.mark.cuda

@@ -54,7 +54,7 @@ def _binary(res=32, seed=0, frac=0.6):
 def _grids(binary):
     jgrid = jx.with_binary(jx.create_grid(jnp.asarray(AABB), resolution=32),
                            jnp.asarray(binary))
-    return jgrid, grid_from_arrays(AABB, binary)
+    return jgrid, grid_from_arrays(AABB, binary, device="cpu")
 
 
 @pytest.mark.parametrize("ctype", list(pt.ContractionType))

@@ -65,13 +65,13 @@ def scene():
     binary[6:26, 6:26, 6:26] = rng.rand(20, 20, 20) < 0.5
     jgrid = jx.with_binary(jx.create_grid(jnp.asarray(AABB), resolution=32),
                            jnp.asarray(binary))
-    tgrid = grid_from_arrays(AABB, binary)
+    tgrid = grid_from_arrays(AABB, binary, device="cpu")
     # density_bias 3: dense enough that the early-stop cull removes slots
     kw = dict(aabb=AABB, levels=LEVELS, use_kernel=True, density_bias=3.0)
     jfield = JaxTensoCP(**kw)
     x0 = jnp.zeros((8, 3))
     params = jfield.init(jax.random.PRNGKey(1), x0, x0)
-    tfield = TensoCPRadianceField(**kw)
+    tfield = TensoCPRadianceField(device="cpu", **kw)
     tensocp_from_flax(jax.tree_util.tree_map(np.asarray, params), tfield)
     return jfield, params, jgrid, tfield, tgrid
 
@@ -145,7 +145,8 @@ def test_render_image_matches_jax(scene):
                    np.float32)
     y, x = np.meshgrid(np.arange(W), np.arange(W), indexing="ij")
     pose_j = jax_look_at_poses(3, radius=2.6, elevation_deg=20.0)[1]
-    pose_t = look_at_poses(3, radius=2.6, elevation_deg=20.0)[1]
+    pose_t = look_at_poses(3, radius=2.6, elevation_deg=20.0,
+                          device="cpu")[1]
     np.testing.assert_allclose(pose_t.numpy(), np.asarray(pose_j), atol=1e-7)
     rj = jax_generate_rays(jnp.asarray(x.reshape(-1)),
                            jnp.asarray(y.reshape(-1)), pose_j, jnp.asarray(K))
@@ -170,14 +171,32 @@ def test_render_image_matches_jax(scene):
 def test_unported_paths_raise(scene):
     *_, tfield, tgrid = scene
     o, d = (torch.as_tensor(a) for a in _camera_rays(8, seed=4))
-    for bad in (dict(field_samples_budget=64),
-                dict(timestamps=torch.zeros(8, 1))):
-        with pytest.raises(NotImplementedError):
-            render_rays(tfield, o, d, grid=tgrid, **dict(KW, **bad))
+    with pytest.raises(NotImplementedError):
+        render_rays(tfield, o, d, grid=tgrid,
+                    **dict(KW, timestamps=torch.zeros(8, 1)))
     # the training paths are ported: a gradient request renders with a
     # graph, and return_compact returns the selection
     *_, sel = render_rays(tfield, o, d, grid=tgrid, return_compact=True, **KW)
     assert sel["ray_ok"].shape == (6,) and sel["aux"] is None
+
+
+def test_entry_points_default_to_the_card():
+    # without a device argument the constructors ask for the CUDA device
+    # and PyTorch raises where there is none; the CPU must be asked for
+    if torch.cuda.is_available():
+        pytest.skip("checks the failure without a CUDA device")
+    from nerfacc_tpu_torch import create_grid
+
+    with pytest.raises((AssertionError, RuntimeError)):
+        create_grid(AABB)
+    with pytest.raises((AssertionError, RuntimeError)):
+        grid_from_arrays(AABB, np.zeros((4, 4, 4), bool))
+    with pytest.raises((AssertionError, RuntimeError)):
+        look_at_poses(2, radius=2.0)
+    with pytest.raises((AssertionError, RuntimeError)):
+        TensoCPRadianceField(aabb=AABB, levels=((4, 2),))
+    grid = create_grid(AABB, resolution=4, device="cpu")
+    assert grid.binary.device.type == "cpu" and grid.num_cells == 64
 
 
 def test_port_imports_no_jax():
@@ -186,6 +205,12 @@ def test_port_imports_no_jax():
         "import nerfacc_tpu_torch, nerfacc_tpu_torch.ops, "
         "nerfacc_tpu_torch.models, nerfacc_tpu_torch.datasets, "
         "nerfacc_tpu_torch.convert, chip_smoke\n"
+        "import nerfacc_tpu_torch.ops.hash_gather, "
+        "nerfacc_tpu_torch.ops.sample_compact, "
+        "nerfacc_tpu_torch.ops.table_gather, "
+        "nerfacc_tpu_torch.models.hash_encoding\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import bench_hash_torch, profile_step_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'nerfacc_tpu'))\n"
         "assert not bad, bad\n"

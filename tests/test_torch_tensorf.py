@@ -46,7 +46,8 @@ def _pair(use_kernel, **kw):
     params = jfield.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(d))
     params_np = jax.tree_util.tree_map(np.asarray, params)
     tfield = TensoCPRadianceField(aabb=AABB, levels=LEVELS,
-                                  use_kernel=use_kernel, **kw)
+                                  use_kernel=use_kernel, device="cpu",
+                                  **kw)
     tensocp_from_flax(params_np, tfield)
     return jfield, params, tfield, x, d
 
@@ -74,7 +75,8 @@ def test_tensocp_matches_jax(use_kernel):
 def test_cp_level_paths_differ_only_by_feature_rounding():
     # use_kernel=False keeps bf16 features, the kernel path f32 ones
     _, _, tk, x, _ = _pair(True)
-    tx = TensoCPRadianceField(aabb=AABB, levels=LEVELS, use_kernel=False)
+    tx = TensoCPRadianceField(aabb=AABB, levels=LEVELS, use_kernel=False,
+                              device="cpu")
     tx.load_state_dict(tk.state_dict())
     xu = torch.as_tensor(np.clip((x + 1.0) / 2.0, 0.0, 1.0))
     with torch.no_grad():

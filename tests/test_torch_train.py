@@ -75,7 +75,7 @@ def _fields(use_kernel=True, density_bias=3.0, seed=1):
     jfield = JaxTensoCP(**kw)
     x0 = jnp.zeros((8, 3))
     params = jfield.init(jax.random.PRNGKey(seed), x0, x0)
-    tfield = TensoCPRadianceField(**kw)
+    tfield = TensoCPRadianceField(device="cpu", **kw)
     tensocp_from_flax(jax.tree_util.tree_map(np.asarray, params), tfield)
     return jfield, params, tfield
 
@@ -90,14 +90,15 @@ def scene():
     jgrid = jx.with_binary(jx.create_grid(jnp.asarray(AABB), resolution=32),
                            jnp.asarray(binary))
     jgrid = jgrid.replace(occs=jnp.asarray(occs))
-    tgrid = grid_from_arrays(AABB, binary, occs)
+    tgrid = grid_from_arrays(AABB, binary, occs, device="cpu")
     return (*_fields(), jgrid, tgrid)
 
 
 def _grads_as_torch(grads, tfield):
     """A flax gradient tree, as {torch parameter name: numpy array}."""
     holder = TensoCPRadianceField(
-        aabb=AABB, levels=LEVELS, use_kernel=tfield.cp_levels[0].use_kernel
+        aabb=AABB, levels=LEVELS, use_kernel=tfield.cp_levels[0].use_kernel,
+        device="cpu",
     )
     tensocp_from_flax(jax.tree_util.tree_map(np.asarray, grads), holder)
     return {n: p.detach().numpy() for n, p in holder.named_parameters()}
@@ -223,7 +224,8 @@ def test_update_grid_matches_jax(scene, step):
     assert flips.sum() <= 2
     # the dilated tables follow the new mask
     assert torch.equal(got.dilated[1],
-                       grid_from_arrays(AABB, got.binary.numpy()).dilated[1])
+                       grid_from_arrays(AABB, got.binary.numpy(),
+                                        device="cpu").dilated[1])
     assert 0 < int(got.binary.sum()) < got.num_cells
 
 
@@ -338,7 +340,7 @@ def test_train_step_matches_jax(scene):
 
     (loss_j, n_j), grads_j = jax.value_and_grad(loss_fn, has_aux=True)(params)
     field = TensoCPRadianceField(aabb=AABB, levels=LEVELS, use_kernel=True,
-                                 density_bias=3.0)
+                                 density_bias=3.0, device="cpu")
     field.load_state_dict(tfield.state_dict())
     opt = torch.optim.Adam(field.parameters(), lr=5e-4)
     before = {n: p.detach().clone() for n, p in field.named_parameters()}
