@@ -10,17 +10,27 @@ Phases (any failed check raises, and the script exits nonzero):
    CUDA the script stops here: it never runs on the CPU.
 2. Build: compiles the CUDA kernels of ``nerfacc_tpu_torch/csrc`` with
    ``nvcc`` into ``build/nerfacc_tpu_torch/`` and reports the seconds.
-3. Kernels vs plain twins on the card, at the main paths' shapes: the CP
-   encoder's forward (K1), residual forward (K2) and table gradients (K3,
-   K4) at 786,432 samples for both TensoCP levels, march selection at
-   12,288 rays x 32 groups x 64 slots (cone 0 and 0.004), re-selection at
-   12,288 rays x 64 -> 32 slots; the hash-table gradient scatter (K7) at
-   the NGP step's 3,145,728 corners for each of the 16 levels (dense and
-   hashed, every 17th index -1), also against a float64 ``index_add_``;
-   the table gather (K8) at 262,144 indices into a 2^19-word table.
-   Median times of both, the time of the one PyTorch call that computes
-   the same function where there is one, and the least time the card
-   could take (bytes over 3.35 TB/s or operations over 67 TFLOP/s).
+3. The host's cost of one wrapper call (``host us per wrapper call``:
+   1,000 un-synchronised calls of ``table_gather`` at one index and of
+   ``fused_reselect`` at 64 rays, host clock over the count, beside
+   PyTorch's ``table[idx]``). Then kernels vs plain twins on the card, at
+   the main paths' shapes: the CP encoder's forward (K1), residual
+   forward (K2) and table gradients (K3, K4) at 786,432 samples for both
+   TensoCP levels, and K4 once more at G = 1024, where its tables exceed
+   a block's shared memory and it takes its global-atomic kernel; march
+   selection at 12,288 rays x 32 groups x 64 slots (cone 0 and 0.004),
+   re-selection at 12,288 rays x 64 -> 32 slots; the hash-table gradient
+   scatter (K7) at the NGP step's 3,145,728 corners for each of the 16
+   levels (dense and hashed, every 17th index -1), also against a float64
+   ``index_add_``; the table gather (K8) into a 2^19-word table at
+   262,144 indices and at 6,291,456 (one level's corners), and at a
+   length that 4 does not divide through views 4, 8 and 12 bytes off a
+   16-byte boundary. Median times of both, the time of the one PyTorch
+   call that computes the same function where there is one, and the
+   least time the card could take (bytes over 3.35 TB/s or operations
+   over 67 TFLOP/s); for K8 also both per call over ten calls back to
+   back (the card's time without the host's share of a call) and the
+   rate of 32-byte L2 sectors that is (every gathered word moves one).
 4. The render path: four 128x128 views of the procedural scene through
    ``render_image`` with the flagship TensoCP field (random weights from a
    seed), the trained 128^3 occupancy grid, the fused march and the
@@ -145,6 +155,9 @@ NGP_FIELD_BUDGET = TRAIN_RAYS * 48 // 2
 NGP_LEVELS, NGP_LOG2_T = 16, 19
 B_CORNERS = 8 * NGP_FIELD_BUDGET  # corners per level and step
 GATHER_N = 262144  # K8: indices into one level's table
+GATHER_LEVEL_N = 8 * 786432  # K8: one level's corners at 786,432 samples
+# K4 at a grid size whose partial tables exceed a block's shared memory
+K4_GLOBAL_SHAPE = dict(B=131072, G=1024, R=128)
 # K7 vs index_add_: both sum the same f32 terms, the kernel in atomic
 # order. A level's entry takes up to B / 4913 ~ 640 terms of order 1:
 # 1e-5 x max|dT|, as for the CP gradients; the same against float64.
@@ -192,18 +205,22 @@ def phase_build() -> None:
             print(f"  ptxas: {line.strip()}")
 
 
-def median_ms(fn, iters: int = 20) -> float:
-    """Median of per-call times on the card, after a warm-up call."""
+def median_ms(fn, iters: int = 20, calls: int = 1) -> float:
+    """Median of per-call times on the card, after a warm-up call. With
+    ``calls`` above 1 each timed window holds that many calls back to
+    back and is divided by the count, so the host's part of the first
+    call is spread over them."""
     fn()
     times = []
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -245,6 +262,22 @@ def _check_equal(name, got, want) -> None:
         )
 
 
+def _scripts():
+    """Make ``scripts/`` importable (its measurements are reused here)."""
+    path = str(ROOT / "scripts")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def print_host_cost(dev) -> None:
+    """What one wrapper call costs the host (no speed check is made)."""
+    _scripts()
+    import bench_launch_torch
+
+    cost = bench_launch_torch.host_cost(dev)
+    print(f"host us per wrapper call: {bench_launch_torch.format_cost(cost)}")
+
+
 def phase_kernels(dev: torch.device) -> list:
     from nerfacc_tpu_torch.ops import (
         cp_level_features,
@@ -257,6 +290,7 @@ def phase_kernels(dev: torch.device) -> list:
 
     rng = np.random.RandomState(SEED)
     report = []
+    print_host_cost(dev)
 
     # K1: CP level features, both flagship levels
     xu_np = rng.rand(B_SAMPLES, 3).astype(np.float32)
@@ -381,6 +415,7 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
     786,432 samples (with u == 0 and u == G - 1 on every axis), both
     levels, a random f32 cotangent."""
     from nerfacc_tpu_torch.ops import (
+        cp_grads_slice_width,
         cp_level_features,
         cp_level_features_res_fwd,
         cp_level_features_res_plain,
@@ -389,6 +424,17 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
         cp_level_grads_res,
         cp_level_grads_res_plain,
     )
+
+    def grads_err(label, got, want):
+        """Max abs error over the three tables, each held to CP_GRAD_REL
+        of its twin's largest entry; and the largest such entry."""
+        err, scale = 0.0, 0.0
+        for a, (d, w) in enumerate(zip(got, want)):
+            top = float(w.abs().max())
+            err = max(err, _check_close(f"{label} dT{a}", d, w, 0.0,
+                                        CP_GRAD_REL * top))
+            scale = max(scale, top)
+        return err, scale
 
     acc = {k: [0.0, 0.0, 0.0] for k in ("K2", "K3", "K4")}  # ms, plain, err
     bounds = {k: [] for k in acc}
@@ -427,12 +473,7 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
         ):
             got, want = fn(), plain()
             torch.cuda.synchronize()
-            err, scale = 0.0, 0.0
-            for a, (d, w) in enumerate(zip(got, want)):
-                s = float(w.abs().max())
-                err = max(err, _check_close(f"{key} {shape} dT{a}", d, w,
-                                            0.0, CP_GRAD_REL * s))
-                scale = max(scale, s)
+            err, scale = grads_err(f"{key} {shape}", got, want)
             print(f"{key} {name} {shape}: max abs err {err:.3e} = "
                   f"{err / scale:.2e} x max|dT| {scale:.3e}")
             timed.append((key, name, err, fn, plain))
@@ -452,13 +493,42 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
                   }[key]
             b = bound(nb, (11 if key == "K2" else 21) * B_SAMPLES * r)
             bounds[key].append(b)
+            route = ""
+            if key == "K4":
+                route = (f"  partial tables of {cp_grads_slice_width(g, r)} "
+                         "features in shared memory")
             print(f"{key} {name} {shape}: kernel {ms:.4f} ms  plain "
                   f"{pms:.4f} ms  bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']})  max_abs_err {err:.3e}")
+                  f"({b['bound_by']})  max_abs_err {err:.3e}{route}")
             a = acc[key]
             a[0], a[1], a[2] = a[0] + ms, a[1] + pms, max(a[2], err)
         del feats, us, want_feats, want_us, timed
         torch.cuda.empty_cache()
+
+    # K4 where its partial tables exceed shared memory: the global-atomic
+    # kernel, chosen by shape (its time is not part of the K4 row)
+    b, g, r = (K4_GLOBAL_SHAPE[k] for k in "BGR")
+    if cp_grads_slice_width(g, r) != 0:
+        raise AssertionError(f"K4 G={g} R={r} was to take the global route")
+    tables = [
+        torch.as_tensor(rng.randn(g, r).astype(np.float32) * 0.2, device=dev)
+        for _ in range(3)
+    ]
+    cot = torch.as_tensor(rng.randn(b, r).astype(np.float32), device=dev)
+    xs = xu[:b].contiguous()
+    _, us = cp_level_features_res_fwd(xs, *tables)
+    got = cp_level_grads_res(xs, cot, *us, g)
+    want = cp_level_grads_res_plain(xs, cot, *us, g)
+    torch.cuda.synchronize()
+    err, scale = grads_err(f"K4 global route G={g}", got, want)
+    ms = median_ms(lambda: cp_level_grads_res(xs, cot, *us, g))
+    print(f"K4 cp_level_grads_res B={b} G={g} R={r} (global atomics: "
+          f"{3 * g * 32 * 4} bytes of tables for 32 features exceed a "
+          f"block's shared memory): kernel {ms:.4f} ms  max abs err "
+          f"{err:.3e} = {err / scale:.2e} x max|dT| {scale:.3e}")
+    acc["K4"][2] = max(acc["K4"][2], err)
+    del tables, cot, xs, us, got, want
+    torch.cuda.empty_cache()
 
     names = {"K2": ("cp_level_features_res", 240),
              "K3": ("cp_level_grads", 198), "K4": ("cp_level_grads_res", 274)}
@@ -476,14 +546,12 @@ def check_hash_kernels(dev) -> list:
     """K7 against its twin and a float64 ``index_add_`` at the NGP step's
     shape, for every level of the reference field (points uniform in the
     unit cube, so levels 0-4 are dense with few entries and 5-15 hashed
-    over 2^19; every 17th index -1); K8 against ``table[idx]``."""
+    over 2^19; every 17th index -1); then K8 (``check_table_gather``)."""
     from nerfacc_tpu_torch.models import hash_grid_indices
     from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
     from nerfacc_tpu_torch.ops import (
         hash_grad_scatter,
         hash_grad_scatter_plain,
-        table_gather,
-        table_gather_plain,
     )
 
     rng = np.random.RandomState(SEED + 2)
@@ -548,30 +616,71 @@ def check_hash_kernels(dev) -> list:
           f"{acc['library_ms']:.4f} ms  bound "
           f"{report[0]['bound_ms']:.4f} ms")
 
+    report.append(check_table_gather(dev, rng, T))
+    return report
+
+
+def check_table_gather(dev, rng, T) -> dict:
+    """K8 against ``table[idx]``, bit-equal: at the script's 262,144
+    indices and at one level's 6,291,456 (both timed), and at a length
+    that 4 does not divide through views 4, 8 and 12 bytes off a 16-byte
+    boundary (the word-by-word kernel)."""
+    from nerfacc_tpu_torch.ops import table_gather, table_gather_plain
+
     table = torch.as_tensor(rng.randint(0, 2 ** 31, T).astype(np.int32),
                             device=dev)
-    idx = torch.as_tensor(rng.randint(0, T, GATHER_N).astype(np.int32),
-                          device=dev)
-    idx_long = idx.long()
-    got = table_gather(idx, table)
-    torch.cuda.synchronize()
-    _check_equal("K8 table_gather", got, table_gather_plain(idx, table))
-    ms = median_ms(lambda: table_gather(idx, table))
-    pms = median_ms(lambda: table_gather_plain(idx, table))
-    lms = median_ms(lambda: table[idx_long])
-    # reads the indices and the table, writes the words; no arithmetic
-    b = bound(4 * (2 * GATHER_N + T), 0)
-    print(f"K8 table_gather N={GATHER_N} T={T}: kernel {ms:.4f} ms = "
-          f"{ms * 1e6 / GATHER_N:.4f} ns/idx  plain {pms:.4f} ms  table[idx] "
-          f"{lms:.4f} ms = {lms * 1e6 / GATHER_N:.4f} ns/idx  bound "
-          f"{b['bound_ms']:.5f} ms  bit-equal")
-    report.append(dict(
+    rows = {}
+    for n in (GATHER_N, GATHER_LEVEL_N):
+        # three spare words for the views that start off the boundary
+        store = torch.as_tensor(rng.randint(0, T, n + 3).astype(np.int32),
+                                device=dev)
+        idx = store[:n]
+        idx_long = idx.long()
+        got = table_gather(idx, table)
+        torch.cuda.synchronize()
+        _check_equal(f"K8 table_gather N={n}", got,
+                     table_gather_plain(idx, table))
+        for offset in (1, 2, 3):
+            view = store[offset:offset + n - 1]  # 4 does not divide n - 1
+            if view.data_ptr() % 16 != 4 * offset:
+                raise AssertionError("the view was to be off the boundary")
+            _check_equal(f"K8 table_gather N={n - 1} at +{4 * offset} bytes",
+                         table_gather(view, table),
+                         table_gather_plain(view, table))
+        _check_equal(f"K8 table_gather N={n - 1}",
+                     table_gather(store[:n - 1], table),
+                     table_gather_plain(store[:n - 1], table))
+        off = store[1:n + 1]
+        ms = median_ms(lambda: table_gather(idx, table))
+        wms = median_ms(lambda: table_gather(off, table))
+        pms = median_ms(lambda: table_gather_plain(idx, table))
+        lms = median_ms(lambda: table[idx_long])
+        # ten calls back to back: the card's time without the host's share
+        ms10 = median_ms(lambda: table_gather(idx, table), calls=10)
+        lms10 = median_ms(lambda: table[idx_long], calls=10)
+        # reads the indices and the table, writes the words; no arithmetic
+        b = bound(4 * (2 * n + T), 0)
+        # every gathered word moves a 32-byte sector out of L2
+        sector_rate = 32 * n / (ms10 * 1e-3)
+        print(f"K8 table_gather N={n} T={T}: kernel {ms:.4f} ms = "
+              f"{ms * 1e6 / n:.4f} ns/idx  off the boundary (word by word) "
+              f"{wms:.4f} ms  plain {pms:.4f} ms  table[idx] {lms:.4f} ms = "
+              f"{lms * 1e6 / n:.4f} ns/idx  ten calls back to back: kernel "
+              f"{ms10:.4f} ms ({sector_rate / 1e12:.3f} TB/s of 32-byte L2 "
+              f"sectors)  table[idx] {lms10:.4f} ms per call  bound "
+              f"{b['bound_ms']:.5f} ms  bit-equal, views and N={n - 1} too")
+        rows[n] = dict(ms=ms, word_ms=wms, plain_ms=pms, library_ms=lms,
+                       back_to_back_ms=ms10, library_back_to_back_ms=lms10,
+                       sector_bytes_per_s=sector_rate, **b)
+        del store, idx, idx_long, got, off
+    small, level = rows[GATHER_N], rows[GATHER_LEVEL_N]
+    return dict(
         name="table_gather", route="cuda",
         source="nerfacc_tpu_torch/csrc/table_gather.cu",
         replaces="scripts/bench_hash.py:379",
-        max_abs_err=0.0, ms=ms, plain_ms=pms, library_ms=lms, **b,
-    ))
-    return report
+        max_abs_err=0.0, **small,
+        at_level_size={"n": GATHER_LEVEL_N, **level},
+    )
 
 
 def make_requests(dev: torch.device) -> list:
@@ -1121,7 +1230,7 @@ def phase_ngp(dev) -> dict:
 
 def phase_gather_script(dev) -> dict:
     """``scripts/bench_hash_torch.py r5gather``: K8 on its script path."""
-    sys.path.insert(0, str(ROOT / "scripts"))
+    _scripts()
     import bench_hash_torch
 
     _, counts = drive(

@@ -2,6 +2,7 @@
 (the twin runs for CPU tensors; CUDA tensors launch the kernel)."""
 
 from .cp_encoder import (
+    cp_grads_slice_width,
     cp_level_features,
     cp_level_features_plain,
     cp_level_features_res,
@@ -28,6 +29,7 @@ from .table_gather import table_gather, table_gather_plain
 
 __all__ = [
     "compact_live_slots",
+    "cp_grads_slice_width",
     "cp_level_features",
     "cp_level_features_plain",
     "cp_level_features_res",

@@ -19,7 +19,10 @@ avoid gathers and scatters. Each basis row has exactly two nonzeros, so
 the CUDA kernels read (forward) or add into (backward) the two table rows
 each sample touches instead: no basis and no matrix product exist. The
 forward sums are the same as the TPU's; the backward's f32 sums over the
-batch run in atomic order, so they agree to f32 summation order.
+batch run in atomic order, so they agree to f32 summation order. K4 keeps
+a block's partial gradient tables in shared memory and adds them to the
+gradient once per block (:func:`cp_grads_slice_width` says for which
+shapes); K3 adds every term to the gradient in device memory.
 
 Two autograd ops wrap them, as the JAX package's ``custom_vjp``\\ s do:
 ``cp_level_features`` (K1 forward, K3 backward) and
@@ -113,10 +116,6 @@ def _table_ptrs(name, xu, tables):
     return ptrs, B, G, R, dev
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _features(xu, t0, t1, t2) -> torch.Tensor:
     """K1 (the plain twin for CPU tensors)."""
     if xu.device.type == "cpu":
@@ -124,11 +123,8 @@ def _features(xu, t0, t1, t2) -> torch.Tensor:
     name = "cp_level_features"
     ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_cp_level_features(
-            *ptrs, out.data_ptr(), B, G, R, _stream(dev)
-        )
-    _build.check(err, name)
+    _build.launch(name, "nerfacc_cp_level_features", dev,
+                  *ptrs, out.data_ptr(), B, G, R)
     cp_level_features.launches += 1
     return out
 
@@ -145,20 +141,43 @@ def cp_level_features_res_fwd(xu, t0, t1, t2):
         torch.empty((B, R), dtype=torch.bfloat16, device=dev)
         for _ in range(3)
     )
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_cp_level_features_res(
-            *ptrs, out.data_ptr(), *(u.data_ptr() for u in residuals),
-            B, G, R, _stream(dev),
-        )
-    _build.check(err, name)
+    _build.launch(
+        name, "nerfacc_cp_level_features_res", dev,
+        *ptrs, out.data_ptr(), *(u.data_ptr() for u in residuals), B, G, R,
+    )
     cp_level_features_res.launches += 1
     return out, residuals
 
 
 def _zero_grads(G, R, dev):
-    return tuple(
-        torch.zeros((G, R), dtype=torch.float32, device=dev) for _ in range(3)
-    )
+    """The three zeroed (G, R) f32 gradients, as views of one (3, G, R)
+    allocation (one memset), and their device pointers."""
+    grads = torch.zeros((3, G, R), dtype=torch.float32, device=dev)
+    base, step = grads.data_ptr(), 4 * G * R
+    return grads.unbind(0), (base, base + step, base + 2 * step)
+
+
+# shared memory one thread block may use on Hopper (227 KB)
+SHARED_BYTES_PER_BLOCK = 232448
+
+
+def cp_grads_slice_width(grid_size: int, n_features: int,
+                         budget: int = SHARED_BYTES_PER_BLOCK) -> int:
+    """How many of the R features one block of K4 accumulates in shared
+    memory: its partial tables take ``3 * G * width * 4`` bytes.
+
+    All R features where that fits the budget (any R, one slice). Else the
+    largest multiple of 32 below R that fits: a warp spans 32 consecutive
+    features of a sample, and the blocks of the last slice take what is
+    left of R. 0 where not even 32 features fit (G above ~600): K4 then
+    launches its kernel that adds every term to the gradient in device
+    memory.
+    """
+    per_feature = 3 * grid_size * 4
+    if per_feature * n_features <= budget:
+        return n_features
+    width = min(budget // per_feature, n_features - 1) // 32 * 32
+    return max(width, 0)
 
 
 def cp_level_grads(xu, t0, t1, t2, g):
@@ -169,12 +188,9 @@ def cp_level_grads(xu, t0, t1, t2, g):
     name = "cp_level_grads"
     ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
     ptrs.append(_build.cuda_ptr(name, "g", g, torch.float32, (B, R), dev))
-    grads = _zero_grads(G, R, dev)
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_cp_level_grads(
-            *ptrs, *(d.data_ptr() for d in grads), B, G, R, _stream(dev)
-        )
-    _build.check(err, name)
+    grads, grad_ptrs = _zero_grads(G, R, dev)
+    _build.launch(name, "nerfacc_cp_level_grads", dev,
+                  *ptrs, *grad_ptrs, B, G, R)
     cp_level_grads.launches += 1
     return grads
 
@@ -182,7 +198,14 @@ def cp_level_grads(xu, t0, t1, t2, g):
 def cp_level_grads_res(xu, g, u0, u1, u2, grid_size: int):
     """K4: the three (G, R) f32 table gradients of
     ``cp_level_features_res`` from the f32 cotangent ``g`` and K2's bf16
-    residuals (the plain twin for CPU tensors)."""
+    residuals (the plain twin for CPU tensors).
+
+    Two kernels compute it, chosen by shape alone and counted under the
+    same ``launches``: where :func:`cp_grads_slice_width` gives a width,
+    blocks accumulate partial tables of that many features in shared
+    memory and add them to the gradient once each; where it gives 0 (the
+    tables of even 32 features exceed a block's shared memory), every term
+    is added to the gradient in device memory."""
     if xu.device.type == "cpu":
         return cp_level_grads_res_plain(xu, g, u0, u1, u2, grid_size)
     name = "cp_level_grads_res"
@@ -196,12 +219,9 @@ def cp_level_grads_res(xu, g, u0, u1, u2, grid_size: int):
         ptrs.append(
             _build.cuda_ptr(name, f"u{i}", u, torch.bfloat16, (B, R), dev)
         )
-    grads = _zero_grads(G, R, dev)
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_cp_level_grads_res(
-            *ptrs, *(d.data_ptr() for d in grads), B, G, R, _stream(dev)
-        )
-    _build.check(err, name)
+    grads, grad_ptrs = _zero_grads(G, R, dev)
+    _build.launch(name, "nerfacc_cp_level_grads_res", dev,
+                  *ptrs, *grad_ptrs, B, G, R, cp_grads_slice_width(G, R))
     cp_level_grads_res.launches += 1
     return grads
 

@@ -100,11 +100,7 @@ def hash_grad_scatter(
     )
     if ptrs[1] % 8 or ptrs[2] % 8:
         raise ValueError(f"{name}: values and out must be 8-byte aligned")
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_hash_grad_scatter(
-            *ptrs, B, T, torch.cuda.current_stream(dev).cuda_stream
-        )
-    _build.check(err, name)
+    _build.launch(name, "nerfacc_hash_grad_scatter", dev, *ptrs, B, T)
     hash_grad_scatter.launches += 1
     return out
 

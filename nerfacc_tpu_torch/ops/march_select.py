@@ -101,13 +101,11 @@ def fused_select_grouped(
     cone = float(cone_angle)
     # the lattice constants as the plain chain rounds them to f32
     a_lim = step_size / cone if cone > 0.0 else 0.0
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_select_grouped(
-            *args, *(o.data_ptr() for o in outs), R, G, k_slots,
-            float(step_size), cone, float(dt_max), a_lim, math.log1p(cone),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, name)
+    _build.launch(
+        name, "nerfacc_select_grouped", dev,
+        *args, *(o.data_ptr() for o in outs), R, G, k_slots,
+        float(step_size), cone, float(dt_max), a_lim, math.log1p(cone),
+    )
     fused_select_grouped.launches += 1
     return tuple(outs)
 
@@ -159,12 +157,8 @@ def fused_reselect(
     outs = [torch.empty((R, k2), dtype=torch.float32, device=dev)
             for _ in range(3)]
     outs.append(torch.empty((R, k2), dtype=torch.bool, device=dev))
-    with torch.cuda.device(dev):
-        err = _build.lib().nerfacc_reselect(
-            *args, *(o.data_ptr() for o in outs), R, K, k2,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(err, name)
+    _build.launch(name, "nerfacc_reselect", dev,
+                  *args, *(o.data_ptr() for o in outs), R, K, k2)
     fused_reselect.launches += 1
     return tuple(outs)
 

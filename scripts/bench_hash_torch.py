@@ -11,7 +11,12 @@ subcommand of ``scripts/bench_hash.py``, for nerfacc_tpu_torch).
     ``corners`` indices into one level's 2^19-word table, ns per index,
     beside PyTorch's own indexing on the same inputs (results must be
     equal); then the same at ``n_samples`` x 8 indices, one level's corner
-    count, where the card and not the launch bounds the time.
+    count, where the card and not the launch bounds the time. Beside each:
+    the least time the bytes could take (indices, table and words once
+    over the memory rate) and the rate of L2 traffic the kernel reached,
+    every gathered word moving a 32-byte sector out of L2
+    (``scripts/bench_gather_variants_torch.py`` measures the L2's read
+    rate to hold that against).
 
 It prints the card's name and power limit first and has no CPU mode.
 """
@@ -95,6 +100,7 @@ def r5gather(n_samples: int = 786432, corners: int = 262144,
         k_ms = _median_ms(lambda: table_gather(idx, level), 20)
         i_ms = _median_ms(lambda: level[idx_long], 20)
         out[f"kernel{label}_ms"], out[f"indexing{label}_ms"] = k_ms, i_ms
+        out[f"kernel{label}_sector_bytes_per_s"] = 32 * n / (k_ms * 1e-3)
         out[f"kernel{label}_ns_per_idx"] = k_ms * 1e6 / n
         out[f"indexing{label}_ns_per_idx"] = i_ms * 1e6 / n
         print(f"P table_gather kernel ({n / 1e3:.0f}k idx over "
@@ -102,7 +108,9 @@ def r5gather(n_samples: int = 786432, corners: int = 262144,
               f"{k_ms * 1e6 / n:.4f} ns/idx; PyTorch indexing {i_ms:.4f} ms "
               f"= {i_ms * 1e6 / n:.4f} ns/idx; bound "
               f"{4 * (2 * n + T) / HBM_BYTES_PER_S * 1e3:.4f} ms (indices, "
-              f"table and words once over 3.35 TB/s); results equal",
+              f"table and words once over 3.35 TB/s); the kernel moved "
+              f"{32 * n / (k_ms * 1e-3) / 1e12:.3f} TB/s of 32-byte L2 "
+              f"sectors; results equal",
               flush=True)
     return out
 

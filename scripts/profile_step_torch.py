@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of nerfacc_tpu_torch's hash-NGP training step goes, on
-one NVIDIA GPU.
+"""Where the time of nerfacc_tpu_torch's training steps goes, on one
+NVIDIA GPU.
 
-    python3 scripts/profile_step_torch.py [--steps N] [--trace_dir DIR]
+    python3 scripts/profile_step_torch.py [--model ngp|tensocp|both]
+        [--steps N] [--trace_dir DIR]
 
-The step is ``chip_smoke.py``'s: the reference NGP field at full width,
-16,384 rays, live-sample compaction of the field, Adam. For the kernel
-configuration (``pallas_grad=True, use_pallas=True``) and the plain one it
-prints:
+The steps are ``chip_smoke.py``'s, 16,384 rays and Adam: the reference NGP
+field at full width with live-sample compaction of the field, and the
+flagship TensoCP field. For the kernel configuration (NGP:
+``pallas_grad=True, use_pallas=True``; TensoCP: ``use_kernel=True,
+use_pallas=True``) and the plain one of each model asked for (default:
+both) it prints:
 
 1. the step's host-clock time over ``--steps`` steps (median, min, max);
 2. from a ``torch.profiler`` trace of 5 steps: device-busy time and wall
@@ -15,15 +18,15 @@ prints:
    waiting for the host), kernel launches and host-to-device copies per
    step, device ms per step by kernel name (the 25 largest), and the
    hash-table scatter's ms per level;
-3. the step's layers on their own, timed with CUDA events at the step's
+3. for NGP, the step's layers on their own, timed with CUDA events at the
    shapes (393,216 compacted samples): the index arithmetic, the table
    gather and blend, the table gradient with the scatter kernel and with
    ``index_add_``, the heads forward and backward, and Adam over the
    table.
 
 The card's name and power limit come first. The chrome traces go to
-``<trace_dir>/ngp_step_<config>.json`` (default ``build/profiles``). No
-CPU mode.
+``<trace_dir>/<model>_step_<config>.json`` (default ``build/profiles``).
+No CPU mode.
 """
 
 from __future__ import annotations
@@ -87,21 +90,25 @@ def _trace_summary(path: Path, n_steps: int) -> None:
                           for lv in range(cs.NGP_LEVELS)))
 
 
-def profile_config(dev, name: str, kernels: bool, batch, n_steps: int,
-                   trace_dir: Path) -> None:
-    field, grid = cs.make_ngp_scene(dev, pallas_grad=kernels)
+def profile_config(dev, model: str, name: str, kernels: bool, batch,
+                   n_steps: int, trace_dir: Path) -> None:
+    if model == "ngp":
+        field, grid = cs.make_ngp_scene(dev, pallas_grad=kernels)
+        kw = cs._ngp_kw(kernels, cs.TRAIN_RAYS)
+    else:
+        field, grid = cs.make_scene(dev, use_kernel=kernels)
+        kw = cs._train_kw(kernels, cs.TRAIN_RAYS)
     opt = torch.optim.Adam(field.parameters(), lr=cs.LR)
-    kw = cs._ngp_kw(kernels, cs.TRAIN_RAYS)
     cs._timed_steps(field, opt, grid, batch[:3], kw)  # warm-up
     rec = cs._timed_steps(
         field, opt, grid, [batch[i % len(batch)] for i in range(n_steps)], kw)
     ms = [r[0] for r in rec]
     live = [r[2] for r in rec]
-    print(f"{name}: step median {statistics.median(ms):.3f} ms (min "
+    print(f"{model} {name}: step median {statistics.median(ms):.3f} ms (min "
           f"{min(ms):.3f}, max {max(ms):.3f}) over {n_steps} steps; live "
           f"samples median {statistics.median(live)}")
     trace_dir.mkdir(parents=True, exist_ok=True)
-    trace = trace_dir / f"ngp_step_{name}.json"
+    trace = trace_dir / f"{model}_step_{name}.json"
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -166,6 +173,8 @@ def layer_times(dev) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("ngp", "tensocp", "both"),
+                    default="both")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace_dir", type=Path,
                     default=ROOT / "build" / "profiles")
@@ -176,9 +185,14 @@ def main() -> None:
     print(f"build and load: {time.perf_counter() - t0:.1f} s")
     o, d, px = cs.bench_stream(dev, 8)
     batch = [(o[i], d[i], px[i]) for i in range(8)]
-    profile_config(dev, "kernels", True, batch, args.steps, args.trace_dir)
-    profile_config(dev, "plain", False, batch, args.steps, args.trace_dir)
-    layer_times(dev)
+    for model in ("tensocp", "ngp"):
+        if args.model not in (model, "both"):
+            continue
+        for name, kernels in (("kernels", True), ("plain", False)):
+            profile_config(dev, model, name, kernels, batch, args.steps,
+                           args.trace_dir)
+        if model == "ngp":
+            layer_times(dev)
     print(f"nvidia-smi: {cs.smi_line()}")
 
 

@@ -83,13 +83,19 @@ def test_k3_twin_matches_jax_backward_kernel():
         np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), **K3_TOL)
 
 
-def test_k4_twin_matches_jax_backward_kernel():
-    xu, ts, g = _fixture(seed=2)
+@pytest.mark.parametrize("B,G,R", [
+    (1500, 33, 8),
+    (1500, 33, 48),  # R neither below 32 nor a multiple of it
+    (1237, 40, 32),  # a prime B: no block or chunk size divides it
+])
+def test_k4_twin_matches_jax_backward_kernel(B, G, R):
+    xu, ts, g = _fixture(B=B, G=G, R=R, seed=2)
     _, res = jax_cp._cp_fwd_res(jnp.asarray(xu), *map(jnp.asarray, ts))
     want = jax_cp._cp_bwd_res(res, jnp.asarray(g))
     _, us = cp_level_features_res_plain(*_torch(xu, *ts))
-    got = cp_level_grads_res_plain(*_torch(xu, g), *us, 33)
+    got = cp_level_grads_res_plain(*_torch(xu, g), *us, G)
     for d_t, d_j in zip(got, want[1:]):
+        assert d_t.shape == (G, R)
         np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), **K4_TOL)
 
 

@@ -12,7 +12,8 @@ operations; only cumsum order differs); CP features within 1e-6 absolute
 table gradients within 1e-5 of the largest |gradient| (the kernels add
 in atomic order, the plain product in cuBLAS's order); the hash-table
 scatter within 1e-5 of the largest |sum| (atomic order against
-``index_add_``'s); the table gather bit-equal.
+``index_add_``'s); the table gather bit-equal (indices outside the table
+clamped into it, as the kernel documents).
 """
 
 import numpy as np
@@ -23,6 +24,7 @@ from nerfacc_tpu_torch import _build
 from nerfacc_tpu_torch.convert import grid_from_arrays
 from nerfacc_tpu_torch.models import NGPRadianceField, TensoCPRadianceField
 from nerfacc_tpu_torch.ops import (
+    cp_grads_slice_width,
     cp_level_features,
     cp_level_features_plain,
     cp_level_features_res,
@@ -117,19 +119,30 @@ def _assert_grads_close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,R", [(33, 8), (512, 128)])
-def test_cp_training_kernels_match_plain(cuda_device, G, R):
+@pytest.mark.parametrize("G,R,B,zero_g", [
+    (33, 8, 3001, False),
+    (512, 128, 3001, False),   # four slices of 32 features
+    (128, 64, 3001, False),    # one slice, all 64 features
+    (33, 48, 3001, False),     # one slice, a warp's second pass half idle
+    (512, 48, 70001, False),   # slices of 32 and 16 features, many chunks
+    (1024, 128, 3001, False),  # tables beyond shared memory: global atomics
+    (128, 64, 0, False),
+    (128, 64, 3001, True),     # an all-zero cotangent adds nothing
+])
+def test_cp_training_kernels_match_plain(cuda_device, G, R, B, zero_g):
     # K2, K3 and K4 at a ragged B with samples at u == 0 and u == G - 1
     rng = np.random.RandomState(6)
-    xu = rng.rand(3001, 3).astype(np.float32)
+    xu = rng.rand(B, 3).astype(np.float32)
     xu[:10] = 1.0
     xu[10:20] = 0.0
     tables = [(rng.randn(G, R) * 0.2).astype(np.float32) for _ in range(3)]
-    g = rng.randn(3001, R).astype(np.float32)
+    g = rng.randn(B, R).astype(np.float32) * (0.0 if zero_g else 1.0)
     xu, t0, t1, t2, g = (torch.as_tensor(a, device=cuda_device)
                          for a in (xu, *tables, g))
     counters = (cp_level_features_res, cp_level_grads, cp_level_grads_res)
     before = [fn.launches for fn in counters]
+    # which of K4's two kernels this shape takes
+    assert (cp_grads_slice_width(G, R) == 0) == (G == 1024)
 
     feats, us = cp_level_features_res_fwd(xu, t0, t1, t2)
     want_feats, want_us = cp_level_features_res_plain(xu, t0, t1, t2)
@@ -137,12 +150,16 @@ def test_cp_training_kernels_match_plain(cuda_device, G, R):
     assert torch.equal(feats, cp_level_features(xu, t0, t1, t2))  # K1's
     for u, want in zip(us, want_us):
         assert torch.equal(u, want)
-    _assert_grads_close(cp_level_grads(xu, t0, t1, t2, g),
-                        cp_level_grads_plain(xu, t0, t1, t2, g))
-    _assert_grads_close(cp_level_grads_res(xu, g, *us, G),
-                        cp_level_grads_res_plain(xu, g, *us, G))
+    got3 = cp_level_grads(xu, t0, t1, t2, g)
+    got4 = cp_level_grads_res(xu, g, *us, G)
     torch.cuda.synchronize()
     assert [fn.launches for fn in counters] == [b + 1 for b in before]
+    if B == 0 or zero_g:
+        for d in (*got3, *got4):
+            assert d.shape == (G, R) and not bool(d.any())
+        return
+    _assert_grads_close(got3, cp_level_grads_plain(xu, t0, t1, t2, g))
+    _assert_grads_close(got4, cp_level_grads_res_plain(xu, g, *us, G))
 
 
 @pytest.mark.cuda
@@ -253,20 +270,88 @@ def test_hash_scatter_kernel_matches_plain(cuda_device, T, B):
 
 
 @pytest.mark.cuda
-def test_table_gather_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("N", [0, 1, 3, 4, 262144 + 37, 1000003])
+def test_table_gather_kernel_matches_plain(cuda_device, N):
     rng = np.random.RandomState(14)
-    T, N = 1 << 19, 262144 + 37
+    T = 1 << 19
     table = torch.as_tensor(rng.randint(0, 2 ** 31, T).astype(np.int32),
                             device=cuda_device)
-    idx = torch.as_tensor(rng.randint(0, T, N).astype(np.int32),
-                          device=cuda_device)
+    # four spare words: views that start 4, 8 and 12 bytes off a 16-byte
+    # boundary, each N long (the size of the output)
+    store = torch.as_tensor(rng.randint(0, T, N + 4).astype(np.int32),
+                            device=cuda_device)
     before = table_gather.launches
-    got = table_gather(idx, table)
-    torch.cuda.synchronize()
-    assert table_gather.launches == before + 1
-    assert torch.equal(got, table_gather_plain(idx, table))
+    for offset in range(4):
+        idx = store[offset:offset + N]
+        assert idx.is_contiguous()
+        assert N == 0 or idx.data_ptr() % 16 == 4 * offset
+        got = table_gather(idx, table)
+        torch.cuda.synchronize()
+        assert got.shape == (N,) and got.dtype == torch.int32
+        assert torch.equal(got, table_gather_plain(idx, table))
+    assert table_gather.launches == before + 4
+    # indices outside the table are clamped into it, on both kernels
+    wild = store.clone()
+    wild[::3] = -7
+    wild[1::5] = T + 11
+    for offset in (0, 1):
+        idx = wild[offset:offset + N]
+        want = table_gather_plain(idx.clamp(0, T - 1), table)
+        assert torch.equal(table_gather(idx, table), want)
     with pytest.raises(TypeError):
-        table_gather(idx, table.float())
+        table_gather(store[:N], table.float())
+    with pytest.raises(ValueError):
+        table_gather(store[:N].reshape(1, -1), table)
+    with pytest.raises(ValueError):
+        table_gather(store[::2], table)  # not contiguous
+
+
+@pytest.mark.cuda
+def test_launch_on_a_device_that_is_not_current(cuda_device):
+    # the launch helper enters the device guard only when it has to: with
+    # two cards, tensors of cuda:0 while cuda:1 is current; with one, the
+    # guard's own path, with an index that is not the current one's
+    rng = np.random.RandomState(15)
+    table = torch.as_tensor(rng.randint(0, 2 ** 31, 4096).astype(np.int32),
+                            device=cuda_device)
+    idx = torch.as_tensor(rng.randint(0, 4096, 1001).astype(np.int32),
+                          device=cuda_device)
+    want = table_gather_plain(idx, table)
+    masks, ts, te, dt = _reselect_args(64, 16, seed=16, device=cuda_device)
+    want_quad = fused_reselect_plain(masks, ts, te, dt, k2=8)
+    if torch.cuda.device_count() > 1:
+        with torch.cuda.device(1):
+            assert torch.cuda.current_device() == 1
+            got = table_gather(idx, table)
+            got_quad = fused_reselect(masks, ts, te, dt, k2=8)
+            assert torch.cuda.current_device() == 1
+    else:
+        entered = []
+        real_guard = torch.cuda.device
+
+        class Guard(real_guard):
+            def __enter__(self):
+                entered.append(self.idx)
+                return super().__enter__()
+
+        # same device: no guard; a current device reported as another: guard
+        torch.cuda.device = Guard
+        try:
+            got = table_gather(idx, table)
+            assert entered == []
+            real_current = torch.cuda.current_device
+            torch.cuda.current_device = lambda: 1
+            try:
+                got_quad = fused_reselect(masks, ts, te, dt, k2=8)
+            finally:
+                torch.cuda.current_device = real_current
+            assert entered == [0]
+        finally:
+            torch.cuda.device = real_guard
+    torch.cuda.synchronize()
+    assert got.device == cuda_device and torch.equal(got, want)
+    _assert_quads(got_quad, want_quad)
+    assert torch.cuda.current_device() == 0
 
 
 @pytest.mark.cuda
