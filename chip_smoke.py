@@ -16,13 +16,16 @@ Phases (any failed check raises, and the script exits nonzero):
    PyTorch's ``table[idx]``). Then kernels vs plain twins on the card, at
    the main paths' shapes: the CP encoder's forward (K1), residual
    forward (K2) and table gradients (K3, K4) at 786,432 samples for both
-   TensoCP levels, and K4 once more at G = 1024, where its tables exceed
+   TensoCP levels (K1 also at 131,072, one chunk of ``update_grid``), and
+   K4 once more at G = 1024, where its tables exceed
    a block's shared memory and it takes its global-atomic kernel; march
    selection at 12,288 rays x 32 groups x 64 slots (cone 0 and 0.004),
    re-selection at 12,288 rays x 64 -> 32 slots; the hash-table gradient
    scatter (K7) at the NGP step's 3,145,728 corners for each of the 16
    levels (dense and hashed, every 17th index -1), also against a float64
-   ``index_add_``; the table gather (K8) into a 2^19-word table at
+   ``index_add_``, and its one-launch entry for all 16 levels at 393,216
+   samples, on uniform random points and on points laid along rays as the
+   step feeds them; the table gather (K8) into a 2^19-word table at
    262,144 indices and at 6,291,456 (one level's corners), and at a
    length that 4 does not divide through views 4, 8 and 12 bytes off a
    16-byte boundary. Median times of both, the time of the one PyTorch
@@ -48,14 +51,17 @@ Phases (any failed check raises, and the script exits nonzero):
    the plain twin of the whole step (no kernel); ``update_grid`` on the
    full 128^3 grid, warm-up and sampled paths (K1), and the card against
    the CPU on a 32^3 grid with the same cells and jitter.
-6. The ``cp_level_features`` op differentiated on its own (K1, K3).
+6. The ``cp_level_features`` op differentiated on its own (K1, K3), and
+   the per-level ``hash_grad_scatter`` op called once per level, which
+   must give what the one-launch entry gives.
 7. The training step of ``bench.py --model ngp --mode train --grid trained
    --fused_march --ngp_pallas_grad`` with the reference NGP field (16
    levels x 2 features x 2^19 entries) and live-sample compaction of the
    field (393,216 entries): one 512-ray step on the card against the same
    step on the CPU (2^15 entries per level; loss and every gradient); 10
-   steps of 16,384 rays (finite losses and parameters, K7 16 times and K5
-   once per step, none of the CP kernels); 10 steps on a repeated batch
+   steps of 16,384 rays (finite losses and parameters, K7's one-launch
+   entry and K5 once per step, the per-level K7 and the CP kernels
+   never); 10 steps on a repeated batch
    must lower its loss; the same step with no kernel; one 128x128 request
    through ``render_image`` with the NGP field.
 8. ``scripts/bench_hash_torch.py r5gather`` (K8 beside PyTorch's
@@ -101,6 +107,7 @@ SLICE_KW = dict(
 # slice shapes: 12,288 compacted rays x 64 march slots, 32 visible slots
 R_SLICE, G_PROBE, K_SLOTS, K_VISIBLE = 12288, 32, 64, 32
 B_SAMPLES = R_SLICE * K_SLOTS
+GRID_CHUNK = 1 << 17  # samples per field call of update_grid
 
 # Kernel vs plain twin on the card. The march kernels' integer outputs are
 # exact (masks bit-equal); their t values keep the plain chain's f32
@@ -298,7 +305,7 @@ def phase_kernels(dev: torch.device) -> list:
     xu_np[64:128] = 1.0  # u == G - 1: the last node, one tap
     xu = torch.as_tensor(xu_np, device=dev)
     cp_ms = cp_plain_ms = cp_err = 0.0
-    cp_bounds = []
+    cp_bounds, cp_small = [], {}
     for g, r in ((128, 64), (512, 128)):
         tables = [
             torch.as_tensor(rng.randn(g, r).astype(np.float32) * 0.2,
@@ -322,12 +329,27 @@ def phase_kernels(dev: torch.device) -> list:
               f"{b['bound_ms']:.4f} ms ({b['bound_by']})  max_abs_err "
               f"{err:.3e}")
         cp_ms, cp_plain_ms, cp_err = cp_ms + ms, cp_plain_ms + pms, max(cp_err, err)
+        # one chunk of update_grid: 131,072 samples
+        xs = xu[:GRID_CHUNK].contiguous()
+        _check_equal(f"cp_level_features B={GRID_CHUNK} G={g} R={r}",
+                     cp_level_features(xs, *tables),
+                     cp_level_features_plain(xs, *tables))
+        sms = median_ms(lambda: cp_level_features(xs, *tables))
+        # ten calls back to back: without the host's share of one call
+        sms10 = median_ms(lambda: cp_level_features(xs, *tables), calls=10)
+        sb = bound(4 * (3 * GRID_CHUNK + 3 * g * r + GRID_CHUNK * r),
+                   11 * GRID_CHUNK * r)
+        print(f"K1 cp_level_features B={GRID_CHUNK} G={g} R={r}: kernel "
+              f"{sms:.4f} ms, ten calls back to back {sms10:.4f} ms per "
+              f"call  bound {sb['bound_ms']:.4f} ms  bit-equal")
+        cp_small[f"G={g} R={r}"] = dict(ms=sms, back_to_back_ms=sms10, **sb)
     report.append(dict(
         name="cp_level_features", route="cuda",
         source="nerfacc_tpu_torch/csrc/cp_encoder.cu",
         replaces="nerfacc_tpu/ops/cp_encoder.py:173",
         max_abs_err=cp_err, ms=cp_ms, plain_ms=cp_plain_ms,
         library_ms=None, **_sum_bounds(cp_bounds),
+        at_grid_update_chunk={"n": GRID_CHUNK, **cp_small},
     ))
     report += check_cp_training_kernels(dev, rng, xu)
 
@@ -574,9 +596,10 @@ def check_hash_kernels(dev) -> list:
         sl = slice(level * 8, level * 8 + 8)
         idx = (flat_idx[:, sl] - level * T).reshape(-1).contiguous()
         idx[::17] = -1
+        # the library call gets the live rows only: index_add_ cannot skip,
+        # and dead rows sent to one entry would collide there
         live = idx >= 0
-        idx_lib = torch.where(live, idx, torch.zeros_like(idx)).long()
-        v_lib = v * live[:, None]
+        idx_lib, v_lib = idx[live].long(), v[live]
         got = hash_grad_scatter(idx, v, T)
         want = hash_grad_scatter_plain(idx, v, T)
         want64 = torch.zeros((T, 2), dtype=torch.float64, device=dev)
@@ -603,7 +626,7 @@ def check_hash_kernels(dev) -> list:
         acc["plain_ms"] += pms
         acc["library_ms"] += lms
         acc["max_abs_err"] = max(acc["max_abs_err"], err)
-    del flat_idx, v, out
+    del v, out
     torch.cuda.empty_cache()
     report = [dict(
         name="hash_grad_scatter", route="cuda",
@@ -615,9 +638,125 @@ def check_hash_kernels(dev) -> list:
           f"{acc['ms']:.4f} ms  plain {acc['plain_ms']:.4f} ms  index_add_ "
           f"{acc['library_ms']:.4f} ms  bound "
           f"{report[0]['bound_ms']:.4f} ms")
+    del flat_idx
+    report.append(check_hash_levels(dev, rng, x, res, dense, T))
 
     report.append(check_table_gather(dev, rng, T))
     return report
+
+
+def ray_ordered_points(dev) -> torch.Tensor:
+    """NGP_FIELD_BUDGET points in the order the NGP step feeds its
+    encoder: the rays of bench.py's stream in batch order, on each ray 24
+    consecutive samples front to back, a march step (5e-3) apart from a
+    random start, mapped into the unit cube of the scene's box and
+    clipped. (The step's own samples have gaps where the grid is empty.)"""
+    o, d, _ = bench_stream(dev, 1)
+    per_ray = NGP_FIELD_BUDGET // TRAIN_RAYS
+    rng = np.random.RandomState(SEED + 3)
+    t0 = torch.as_tensor(rng.rand(TRAIN_RAYS).astype(np.float32), device=dev)
+    t = t0[:, None] + TRAIN_KW["render_step_size"] * torch.arange(
+        per_ray, dtype=torch.float32, device=dev)
+    x = o[0][:, None, :] + t[..., None] * d[0][:, None, :]
+    lo = torch.tensor(AABB[:3], device=dev)
+    hi = torch.tensor(AABB[3:], device=dev)
+    return ((x - lo) / (hi - lo)).clamp(0.0, 1.0).reshape(-1, 3)
+
+
+def _index_add_loop(flat_idx, corner_w, g, T):
+    """The table gradient through one ``index_add_`` per level on inputs
+    made ready beforehand, the rows outside their level dropped (the
+    library's time for what K7 computes in one launch); returns the timed
+    function."""
+    N, L = flat_idx.shape[0], flat_idx.shape[1] // 8
+    gl = g.reshape(N, 2, L).permute(0, 2, 1)
+    ready = []
+    for level in range(L):
+        sl = slice(level * 8, level * 8 + 8)
+        idx = (flat_idx[:, sl] - level * T).reshape(-1).long()
+        live = (idx >= 0) & (idx < T)  # index_add_ cannot skip the others
+        v = (corner_w[:, sl, None] * gl[:, level, None, :]).reshape(-1, 2)
+        ready.append((idx[live], v[live]))
+    out = torch.empty((L, T, 2), dtype=torch.float32, device=g.device)
+
+    def run():
+        out.zero_()
+        for level, (idx, v) in enumerate(ready):
+            out[level].index_add_(0, idx, v)
+        return out
+
+    return run
+
+
+def check_hash_levels(dev, rng, x_random, res, dense, T) -> dict:
+    """K7's one-launch entry against its twin and a float64 ``index_add_``
+    at the NGP step's shape (393,216 samples x 16 levels), on uniform
+    random points, which have no runs of equal indices, and on points laid
+    along rays as the step feeds them; every 17th sample's indices of one
+    level are -1 and every 29th sample's cotangent is zero. The entry in
+    the report is the ray-ordered case; the random one stands beside it."""
+    from nerfacc_tpu_torch.models import hash_grid_indices
+    from nerfacc_tpu_torch.ops import (
+        hash_grad_scatter_levels,
+        hash_grad_scatter_levels_plain,
+    )
+    from nerfacc_tpu_torch.ops.hash_gather import SCATTER_RUN_LENGTH
+
+    N, L = NGP_FIELD_BUDGET, NGP_LEVELS
+    g = torch.as_tensor(rng.randn(N, 2 * L).astype(np.float32), device=dev)
+    g[5::29] = 0.0
+    # reads flat_idx and corner_w (N, 8 L) and g (N, 2 L), writes the
+    # (L, T, 2) table; per corner two products and two adds
+    b = bound(4 * N * (16 * L + 2 * L) + 8 * L * T, 4 * 8 * L * N)
+    d_table = torch.empty((L, T, 2), dtype=torch.float32, device=dev)
+    rows = {}
+    for label, x in (("random", x_random), ("ray-ordered",
+                                            ray_ordered_points(dev))):
+        flat_idx, corner_w = hash_grid_indices(
+            x, torch.as_tensor(res, device=dev),
+            torch.as_tensor(dense, device=dev), T)
+        flat_idx[::17, 40:48] = -1  # level 5 of every 17th sample: skipped
+        got = hash_grad_scatter_levels(flat_idx, corner_w, g,
+                                       d_table.zero_()).clone()
+        want = hash_grad_scatter_levels_plain(
+            flat_idx, corner_w, g, torch.zeros_like(d_table))
+        want64 = hash_grad_scatter_levels_plain(
+            flat_idx, corner_w.double(), g.double(),
+            torch.zeros((L, T, 2), dtype=torch.float64, device=dev))
+        torch.cuda.synchronize()
+        scale = float(want64.abs().max())
+        tol = HASH_GRAD_REL * scale
+        err = _check_close(f"K7 levels {label} vs twin", got, want, 0.0, tol)
+        err64 = _check_close(f"K7 levels {label} vs float64", got.double(),
+                             want64, 0.0, tol)
+        del want64
+        # atomic adds the kernel makes: a corner starts a new sum where
+        # its index differs from the sample before or a run begins
+        changed = flat_idx[1:] != flat_idx[:-1]
+        starts = torch.arange(1, N, device=dev) % SCATTER_RUN_LENGTH == 0
+        adds = int((changed | starts[:, None]).sum()) + 8 * L
+        ms = median_ms(lambda: hash_grad_scatter_levels(
+            flat_idx, corner_w, g, d_table))
+        pms = median_ms(lambda: hash_grad_scatter_levels_plain(
+            flat_idx, corner_w, g, d_table), 3)
+        lms = median_ms(_index_add_loop(flat_idx, corner_w, g, T), 5)
+        print(f"K7 hash_grad_scatter_levels {label} points N={N} L={L} "
+              f"T={T}: kernel {ms:.4f} ms  plain {pms:.4f} ms  index_add_ "
+              f"loop {lms:.4f} ms  bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})  {adds} adds for {8 * L * N} corners "
+              f"({adds / (8 * L * N):.3f})  max abs err {err:.3e} = "
+              f"{err / scale:.2e} x max|dT| {scale:.3e} (vs float64 "
+              f"{err64 / scale:.2e})")
+        rows[label] = dict(ms=ms, plain_ms=pms, library_ms=lms,
+                           max_abs_err=err, adds_per_corner=adds / (8 * L * N))
+        del flat_idx, corner_w, got, want
+        torch.cuda.empty_cache()
+    return dict(
+        name="hash_grad_scatter_levels", route="cuda",
+        source="nerfacc_tpu_torch/csrc/hash_scatter.cu",
+        replaces="nerfacc_tpu/ops/hash_gather.py:433",
+        **rows["ray-ordered"], **b, on_random_points=rows["random"],
+    )
 
 
 def check_table_gather(dev, rng, T) -> dict:
@@ -767,7 +906,7 @@ def kernel_counters() -> dict:
     return {name: getattr(ops, name) for name in (
         "cp_level_features", "cp_level_features_res", "cp_level_grads",
         "cp_level_grads_res", "fused_select_grouped", "fused_reselect",
-        "hash_grad_scatter", "table_gather")}
+        "hash_grad_scatter", "hash_grad_scatter_levels", "table_gather")}
 
 
 def drive(path: str, fn, must_launch, must_not_launch=()):
@@ -825,7 +964,7 @@ def phase_slice(dev: torch.device) -> dict:
         lambda: _serve(field, grid, requests, True),
         ("cp_level_features", "fused_select_grouped", "fused_reselect"),
         ("cp_level_features_res", "cp_level_grads", "cp_level_grads_res",
-         "hash_grad_scatter", "table_gather"),
+         "hash_grad_scatter", "hash_grad_scatter_levels", "table_gather"),
     )
     plain_outs, plain_ms = _serve(plain_field, grid, requests, False)
 
@@ -964,7 +1103,7 @@ def phase_train(dev) -> dict:
         ("cp_level_features_res", "cp_level_grads_res",
          "fused_select_grouped"),
         ("cp_level_features", "cp_level_grads", "fused_reselect",
-         "hash_grad_scatter", "table_gather"),
+         "hash_grad_scatter", "hash_grad_scatter_levels", "table_gather"),
     )
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = {"cp_level_features_res": 2, "cp_level_grads_res": 2,
@@ -1158,15 +1297,17 @@ def phase_ngp(dev) -> dict:
     batch = [(o[i], d[i], px[i]) for i in range(NGP_STEPS + 1)]
     _timed_steps(field, opt, grid, batch[:1], kw)  # warm-up
     torch.cuda.reset_peak_memory_stats()
+    # the table gradient is one launch: the per-level kernel must not run
     others = ("cp_level_features", "cp_level_features_res", "cp_level_grads",
-              "cp_level_grads_res", "fused_reselect", "table_gather")
+              "cp_level_grads_res", "fused_reselect", "hash_grad_scatter",
+              "table_gather")
     rec, paths["ngp train"] = drive(
         f"{NGP_STEPS} NGP training steps",
         lambda: _timed_steps(field, opt, grid, batch[1:], kw),
-        ("hash_grad_scatter", "fused_select_grouped"), others,
+        ("hash_grad_scatter_levels", "fused_select_grouped"), others,
     )
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {"hash_grad_scatter": NGP_LEVELS, "fused_select_grouped": 1}
+    per_step = {"hash_grad_scatter_levels": 1, "fused_select_grouped": 1}
     for i, (ms, loss, n, counts) in enumerate(rec):
         if not np.isfinite(loss):
             raise AssertionError(f"NGP step {i}: loss {loss}")
@@ -1260,11 +1401,61 @@ def phase_op_backward(dev) -> dict:
         "the cp_level_features op's backward",
         lambda: cp_level_features(xu, *tables).backward(cot),
         ("cp_level_features", "cp_level_grads"),
-        ("cp_level_features_res", "cp_level_grads_res", "hash_grad_scatter"),
+        ("cp_level_features_res", "cp_level_grads_res", "hash_grad_scatter",
+         "hash_grad_scatter_levels"),
     )
     if not all(bool(torch.isfinite(t.grad).all()) for t in tables):
         raise AssertionError("cp_level_features backward: non-finite grads")
     return {"cp_level_features op backward": counts}
+
+
+def phase_level_scatter(dev) -> dict:
+    """The per-level ``hash_grad_scatter`` op on its own, as the JAX
+    package's ``_bwd_pallas`` calls its kernel: once per level into that
+    level's slice of a zeroed gradient, at the NGP step's shape on
+    ray-ordered points. The sixteen calls must give what the one-launch
+    entry gives (f32 sums in another order)."""
+    from nerfacc_tpu_torch.models import hash_grid_indices
+    from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
+    from nerfacc_tpu_torch.ops import (
+        hash_grad_scatter,
+        hash_grad_scatter_levels,
+    )
+
+    rng = np.random.RandomState(SEED + 4)
+    N, L, T = NGP_FIELD_BUDGET, NGP_LEVELS, 1 << NGP_LOG2_T
+    res = _level_resolutions(L, 16, 1.4472692012786865)
+    flat_idx, corner_w = hash_grid_indices(
+        ray_ordered_points(dev), torch.as_tensor(res, device=dev),
+        torch.as_tensor((res + 1) ** 3 <= T, device=dev), T)
+    g = torch.as_tensor(rng.randn(N, 2 * L).astype(np.float32), device=dev)
+
+    def per_level():
+        d_table = torch.zeros((L, T, 2), dtype=torch.float32, device=dev)
+        for level in range(L):
+            sl = slice(level * 8, level * 8 + 8)
+            pair = torch.stack([g[:, level], g[:, L + level]], dim=-1)
+            hash_grad_scatter(
+                (flat_idx[:, sl] - level * T).reshape(-1),
+                (corner_w[:, sl, None] * pair[:, None, :]).reshape(-1, 2),
+                T, out=d_table[level])
+        return d_table
+
+    got, counts = drive(
+        "the per-level hash_grad_scatter op", per_level,
+        ("hash_grad_scatter",),
+        tuple(k for k in kernel_counters() if k != "hash_grad_scatter"),
+    )
+    want = hash_grad_scatter_levels(flat_idx, corner_w, g,
+                                    torch.zeros_like(got))
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = _check_close("per-level K7 vs the one-launch entry", got, want, 0.0,
+                       HASH_GRAD_REL * scale)
+    print(f"per-level hash_grad_scatter x {L} vs hash_grad_scatter_levels: "
+          f"max abs diff {err:.3e} = {err / scale:.2e} x max|dT| "
+          f"{scale:.3e}")
+    return {"hash_grad_scatter op per level": counts}
 
 
 def main() -> None:
@@ -1274,6 +1465,7 @@ def main() -> None:
     paths = {"render": phase_slice(dev)}
     paths.update(phase_train(dev))
     paths.update(phase_op_backward(dev))
+    paths.update(phase_level_scatter(dev))
     paths.update(phase_ngp(dev))
     paths.update(phase_gather_script(dev))
     for entry in report:

@@ -50,10 +50,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 # C entry points: every one returns the cudaError_t of its launch
 _SIGNATURES = {
-    # xu, t0, t1, t2, out, B, G, R, stream
-    "nerfacc_cp_level_features": (_P,) * 5 + (_I,) * 3 + (_P,),
-    # xu, t0, t1, t2, out, u0, u1, u2, B, G, R, stream
-    "nerfacc_cp_level_features_res": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # xu, t0, t1, t2, out, B, G, R, slice width (0: the tables read from
+    # device memory), stream
+    "nerfacc_cp_level_features": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # xu, t0, t1, t2, out, u0, u1, u2, B, G, R, slice width, stream
+    "nerfacc_cp_level_features_res": (_P,) * 8 + (_I,) * 4 + (_P,),
     # xu, t0, t1, t2, g, d0, d1, d2, B, G, R, stream
     "nerfacc_cp_level_grads": (_P,) * 8 + (_I,) * 3 + (_P,),
     # xu, g, u0, u1, u2, d0, d1, d2, B, G, R, slice width (0: the
@@ -66,6 +67,9 @@ _SIGNATURES = {
     "nerfacc_reselect": (_P,) * 8 + (_I,) * 3 + (_P,),
     # idx, v, out, B, T, stream
     "nerfacc_hash_grad_scatter": (_P,) * 3 + (_L, _I, _P),
+    # flat_idx, corner_w, g, d_table, N, L, T, levels per group, run
+    # length, stream
+    "nerfacc_hash_grad_scatter_levels": (_P,) * 4 + (_I,) * 5 + (_P,),
     # idx, table, out, N, T, stream
     "nerfacc_table_gather": (_P,) * 3 + (_L, _I, _P),
 }

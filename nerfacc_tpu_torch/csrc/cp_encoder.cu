@@ -2,8 +2,14 @@
 // Hopper (sm_90a).
 //
 // Replaces, in nerfacc_tpu/ops/cp_encoder.py:
-//   K1 _cp_fwd_impl (_fwd_kernel)         -> cp_level_features_kernel<false>
-//   K2 _cp_fwd_res_impl (_fwd_res_kernel) -> cp_level_features_kernel<true>
+//   K1 _cp_fwd_impl (_fwd_kernel)         -> cp_level_features_shared_kernel
+//                                            <.., false>
+//   K2 _cp_fwd_res_impl (_fwd_res_kernel) -> cp_level_features_shared_kernel
+//                                            <.., true>
+//                                            (both: cp_level_features_kernel
+//                                            for small batches and where a
+//                                            slice of the tables exceeds
+//                                            shared memory)
 //   K3 _cp_bwd (_bwd_kernel)              -> cp_level_grads_kernel
 //   K4 _cp_bwd_res (_bwd_res_kernel)      -> cp_level_grads_res_shared_kernel
 //                                            (cp_level_grads_res_kernel where
@@ -30,11 +36,24 @@
 // blocks; the TPU's in block order), so the gradients agree to f32
 // summation order, not bit for bit.
 //
-// What bounds them: the forward, bytes. Per sample it reads 2 rows x R x 3
-// axes of the tables (<= 0.8 MB per level in f32, resident in the 50 MB
-// L2) and writes R f32 (K2: plus 3 R bf16) to device memory. The backward,
-// the adds: 2 x 3 x R f32 atomic adds per live sample into (G, R) tables.
-// Sent to device memory (K3, and K4 for tables too large for a block) they
+// What bounds them: the forward, the bytes it writes, R f32 per sample
+// (K2: plus 3 R bf16), if it gets its table rows cheaply. Read as f32 from
+// L2 (the kernel of the first port, cp_level_features_kernel: a warp per
+// sample, six 4-byte loads and six bf16 roundings per feature) the rows are
+// 6 R x 4 bytes per sample against R x 4 written, and L2-to-SM traffic and
+// the instruction stream set the time, 3-4x the bound. So
+// cp_level_features_shared_kernel stages a block's slice of the three
+// tables in shared memory, rounded to bf16 once per block instead of once
+// per read (3 x G x Rs x 2 bytes: (128, 64) whole in 48 KB, (512, 128) as
+// two slices of 64 features in 192 KB, one block per SM, grid = slices x
+// chunks of samples), computes a sample's taps once in one lane and passes
+// them by shuffle, and gives a lane four consecutive features: 8-byte
+// shared loads, a shift per bf16 -> f32, one 16-byte streaming store.
+// Batches too small to pay for the staging and tables too large for a
+// block keep the first kernel, chosen by shape in
+// ops/cp_encoder.py::cp_features_slice_width. The backward, the adds: 2 x
+// 3 x R f32 atomic adds per live sample into (G, R) tables. Sent to device
+// memory (K3, and K4 for tables too large for a block) they
 // are resolved in L2 at about 4x the time the bytes would take. K4 sends
 // L2 fewer: a block owns a slice of Rs features of all three gradients as
 // partial tables in shared memory (3 x G x Rs floats, up to 227 KB), adds
@@ -61,6 +80,8 @@
 // is then the hat's own value, 0 beyond one node of the grid). The two
 // bf16 tap weights need not sum to exactly 1; each is used as rounded.
 
+#include <cstddef>
+#include <cstdint>
 #include <mutex>
 
 #include <cuda_bf16.h>
@@ -72,6 +93,9 @@ namespace {
 
 constexpr int kFeatThreads = 32;  // threads over the R features of a sample
 constexpr int kSampleRows = 8;    // samples per block
+// K1 / K2 with the tables in shared memory: one block per SM
+constexpr int kForwardWarps = 32;
+constexpr int kForwardMinSamples = 1024;  // per block: a run for every warp
 // K4 with partial tables in shared memory: one block per SM
 constexpr int kSharedRows = 32;          // warps per block, a sample each
 constexpr int kSharedMinSamples = 256;   // per block, at least
@@ -147,6 +171,139 @@ __global__ void cp_level_features_kernel(
       feat = a == 0 ? ua : __fmul_rn(feat, ua);
     }
     out[b * R + r] = feat;
+  }
+}
+
+// Four floats rounded to bf16 with two packed conversions: features 0 and
+// 2 in the low halves of x and y, 1 and 3 in the high halves
+__device__ __forceinline__ uint2 bf16_pack4(float a, float b, float c,
+                                            float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  return make_uint2(*reinterpret_cast<const unsigned int*>(&lo),
+                    *reinterpret_cast<const unsigned int*>(&hi));
+}
+
+// the f32 value of the bf16 in the low / high half of a word
+__device__ __forceinline__ float bf16_low(unsigned int bits) {
+  return __uint_as_float(bits << 16);
+}
+__device__ __forceinline__ float bf16_high(unsigned int bits) {
+  return __uint_as_float(bits & 0xffff0000u);
+}
+
+// w0 * t0 + w1 * t1, each product exact, one rounding
+__device__ __forceinline__ float two_taps(float w0, float t0, float w1,
+                                          float t1) {
+  return __fadd_rn(__fmul_rn(w0, t0), __fmul_rn(w1, t1));
+}
+
+// K1 (kResidual false) and K2 (true) with the tables in shared memory.
+// Block (x, y) owns features [x * 4 kLanes, (x + 1) * 4 kLanes) and samples
+// [y * chunk, (y + 1) * chunk); chunk * R fits 31 bits. It stages its
+// slice of the three tables once, rounded to bf16 (3 x G x kLanes words of
+// four features), which gives the bits that rounding each read gives. A
+// warp takes runs of 32 consecutive samples: each lane computes the taps
+// of one of them (row and the two bf16 weights packed into one word per
+// axis) and the warp passes them round by shuffle; a lane owns four
+// consecutive features, so a sample takes kLanes lanes and a warp 32 /
+// kLanes samples per step, each lane reading two 8-byte words per axis
+// from shared memory and writing its four features with one 16-byte
+// streaming store (K2: and three 8-byte ones). A last node has no upper
+// neighbour: its w1 is 0 and it reads its own row twice, which adds an
+// exact zero.
+template <int kLanes, bool kResidual>
+__global__ void __launch_bounds__(32 * kForwardWarps, 1)
+    cp_level_features_shared_kernel(
+        const float* __restrict__ xu, const float* __restrict__ t0,
+        const float* __restrict__ t1, const float* __restrict__ t2,
+        float* __restrict__ out, __nv_bfloat16* __restrict__ u0,
+        __nv_bfloat16* __restrict__ u1, __nv_bfloat16* __restrict__ u2,
+        int B, int G, int R, int chunk) {
+  extern __shared__ uint2 staged[];
+  constexpr unsigned int kAll = 0xffffffffu;
+  constexpr int kThreads = 32 * kForwardWarps;
+  constexpr int kPerStep = 32 / kLanes;  // samples per warp and step
+  const int r_begin = blockIdx.x * 4 * kLanes;
+  const int tid = threadIdx.x;
+  const int per_axis = G * kLanes;
+  {
+    const float* tables[3] = {t0, t1, t2};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float* slice = tables[a] + r_begin;
+      for (int i = tid; i < per_axis; i += kThreads) {
+        const int row = i / kLanes;
+        const float4 v = __ldg(reinterpret_cast<const float4*>(
+            slice + row * R + 4 * (i - row * kLanes)));
+        staged[a * per_axis + i] = bf16_pack4(v.x, v.y, v.z, v.w);
+      }
+    }
+  }
+  __syncthreads();
+
+  const long long b_begin = (long long)blockIdx.y * chunk;
+  const int n_chunk = (int)min((long long)chunk, B - b_begin);
+  const long long first = b_begin * R + r_begin;
+  const float* xu_chunk = xu + b_begin * 3;
+  float* out_chunk = out + first;
+  __nv_bfloat16* u_chunk[3] = {u0, u1, u2};
+  if (kResidual) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) u_chunk[a] += first;
+  }
+  const int lane = tid & 31;
+  const int sub = lane / kLanes;           // which sample of the step
+  const int q = lane - sub * kLanes;       // which four features
+  for (int run = 32 * (tid >> 5); run < n_chunk; run += kThreads) {
+    const int n_run = min(32, n_chunk - run);
+    // lane l holds the taps of sample run + l
+    int my_row0[3];
+    unsigned int my_w[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const Taps t =
+          axis_taps(lane < n_run ? xu_chunk[(run + lane) * 3 + a] : 0.0f, G);
+      my_row0[a] = t.row0;
+      // both weights are bf16 values: w0 in the low half, w1 in the high
+      my_w[a] = (__float_as_uint(t.w0) >> 16) |
+                (__float_as_uint(t.w1) & 0xffff0000u);
+    }
+    for (int s = 0; s < n_run; s += kPerStep) {
+      const int src = s + sub;
+      float feat[4];
+      uint2 res[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int row0 = __shfl_sync(kAll, my_row0[a], src);
+        const unsigned int w = __shfl_sync(kAll, my_w[a], src);
+        const float w0 = bf16_low(w), w1 = bf16_high(w);
+        const int at = (a * G + row0) * kLanes + q;
+        const uint2 lo = staged[at];
+        const uint2 hi = staged[at + (row0 + 1 < G ? kLanes : 0)];
+        const float ua[4] = {
+            two_taps(w0, bf16_low(lo.x), w1, bf16_low(hi.x)),
+            two_taps(w0, bf16_high(lo.x), w1, bf16_high(hi.x)),
+            two_taps(w0, bf16_low(lo.y), w1, bf16_low(hi.y)),
+            two_taps(w0, bf16_high(lo.y), w1, bf16_high(hi.y))};
+        if (kResidual) res[a] = bf16_pack4(ua[0], ua[1], ua[2], ua[3]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          feat[k] = a == 0 ? ua[k] : __fmul_rn(feat[k], ua[k]);
+        }
+      }
+      if (src < n_run) {
+        const int at = (run + src) * R + 4 * q;
+        __stcs(reinterpret_cast<float4*>(out_chunk + at),
+               make_float4(feat[0], feat[1], feat[2], feat[3]));
+        if (kResidual) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            __stcs(reinterpret_cast<uint2*>(u_chunk[a] + at), res[a]);
+          }
+        }
+      }
+    }
   }
 }
 
@@ -371,36 +528,122 @@ inline dim3 sample_grid(int B) {
   return dim3((B + kSampleRows - 1) / kSampleRows);
 }
 
+// More than 48 KB of dynamic shared memory has to be asked for, once per
+// kernel and device: one of these per family of kernels.
+struct SharedAllowance {
+  std::mutex lock;
+  bool allowed[nerfacc::kMaxDevices] = {};
+
+  template <typename Kernel, size_t kCount>
+  cudaError_t ask(const Kernel (&kernels)[kCount], int device) {
+    std::lock_guard<std::mutex> guard(lock);
+    if (allowed[device]) return cudaSuccess;
+    for (const Kernel kernel : kernels) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kSharedBytesMax);
+      if (err != cudaSuccess) return err;
+    }
+    allowed[device] = true;
+    return cudaSuccess;
+  }
+};
+
+// One block per SM: `slices` blocks side by side share each chunk of the
+// B samples. Chunks hold at least min_samples, a multiple of 32 samples,
+// and at most what 32-bit row offsets reach; returns the chunk length (0:
+// R too large) and the number of chunks.
+inline int sample_chunks(int B, int R, int slices, int sms, int min_samples,
+                         int* chunks) {
+  int n = sms / slices > 1 ? sms / slices : 1;
+  const int most = (B + min_samples - 1) / min_samples;
+  if (n > most) n = most;
+  int chunk = ((B + n - 1) / n + 31) / 32 * 32;
+  const int longest = ((int)(0x7fffffffLL / R) - 64) / 32 * 32;
+  if (longest < 32) return 0;
+  if (chunk > longest) chunk = longest;
+  *chunks = (B + chunk - 1) / chunk;
+  return chunk;
+}
+
+// K1 / K2. Rs > 0: the kernel with a slice of Rs = 32, 64 or 128 features
+// of the tables in shared memory (Rs divides R; 3 x G x Rs x 2 bytes fit a
+// block). Rs == 0, or pointers off the 16-byte boundaries its vector loads
+// and stores need: the kernel that reads the tables from device memory.
+template <bool kResidual>
+int launch_features(const float* xu, const float* t0, const float* t1,
+                    const float* t2, float* out, void* u0, void* u1,
+                    void* u2, int B, int G, int R, int Rs, void* stream) {
+  if (B == 0 || R == 0) return 0;
+  __nv_bfloat16* r0 = static_cast<__nv_bfloat16*>(u0);
+  __nv_bfloat16* r1 = static_cast<__nv_bfloat16*>(u1);
+  __nv_bfloat16* r2 = static_cast<__nv_bfloat16*>(u2);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t wide = reinterpret_cast<uintptr_t>(t0) |
+                         reinterpret_cast<uintptr_t>(t1) |
+                         reinterpret_cast<uintptr_t>(t2) |
+                         reinterpret_cast<uintptr_t>(out);
+  const uintptr_t narrow = reinterpret_cast<uintptr_t>(u0) |
+                           reinterpret_cast<uintptr_t>(u1) |
+                           reinterpret_cast<uintptr_t>(u2);
+  if (Rs <= 0 || wide % 16 || narrow % 8) {
+    cp_level_features_kernel<kResidual>
+        <<<sample_grid(B), dim3(kFeatThreads, kSampleRows), 0, s>>>(
+            xu, t0, t1, t2, out, r0, r1, r2, B, G, R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long bytes = 3LL * G * Rs * sizeof(__nv_bfloat16);
+  if ((Rs != 32 && Rs != 64 && Rs != 128) || R % Rs ||
+      bytes > kSharedBytesMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = nerfacc::current_device_sms(&device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using Kernel = void (*)(const float*, const float*, const float*,
+                          const float*, float*, __nv_bfloat16*,
+                          __nv_bfloat16*, __nv_bfloat16*, int, int, int, int);
+  const Kernel kernels[3] = {
+      cp_level_features_shared_kernel<8, kResidual>,
+      cp_level_features_shared_kernel<16, kResidual>,
+      cp_level_features_shared_kernel<32, kResidual>};
+  {
+    static SharedAllowance allowance;  // one per kResidual
+    err = allowance.ask(kernels, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int chunks = 0;
+  const int chunk =
+      sample_chunks(B, R, R / Rs, sms, kForwardMinSamples, &chunks);
+  if (chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  kernels[Rs == 32 ? 0 : (Rs == 64 ? 1 : 2)]
+      <<<dim3(R / Rs, chunks), 32 * kForwardWarps,
+         static_cast<size_t>(bytes), s>>>(xu, t0, t1, t2, out, r0, r1, r2, B,
+                                          G, R, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* nerfacc_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// Rs: see launch_features
 extern "C" int nerfacc_cp_level_features(const float* xu, const float* t0,
                                          const float* t1, const float* t2,
                                          float* out, int B, int G, int R,
-                                         void* stream) {
-  if (B == 0 || R == 0) return 0;
-  cp_level_features_kernel<false>
-      <<<sample_grid(B), dim3(kFeatThreads, kSampleRows), 0,
-         static_cast<cudaStream_t>(stream)>>>(xu, t0, t1, t2, out, nullptr,
-                                              nullptr, nullptr, B, G, R);
-  return static_cast<int>(cudaGetLastError());
+                                         int Rs, void* stream) {
+  return launch_features<false>(xu, t0, t1, t2, out, nullptr, nullptr,
+                                nullptr, B, G, R, Rs, stream);
 }
 
 extern "C" int nerfacc_cp_level_features_res(
     const float* xu, const float* t0, const float* t1, const float* t2,
-    float* out, void* u0, void* u1, void* u2, int B, int G, int R,
+    float* out, void* u0, void* u1, void* u2, int B, int G, int R, int Rs,
     void* stream) {
-  if (B == 0 || R == 0) return 0;
-  cp_level_features_kernel<true>
-      <<<sample_grid(B), dim3(kFeatThreads, kSampleRows), 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          xu, t0, t1, t2, out, static_cast<__nv_bfloat16*>(u0),
-          static_cast<__nv_bfloat16*>(u1), static_cast<__nv_bfloat16*>(u2),
-          B, G, R);
-  return static_cast<int>(cudaGetLastError());
+  return launch_features<true>(xu, t0, t1, t2, out, u0, u1, u2, B, G, R, Rs,
+                               stream);
 }
 
 // d0, d1, d2 must be zeroed by the caller: the kernel adds into them
@@ -452,35 +695,19 @@ extern "C" int nerfacc_cp_level_grads_res(const float* xu, const float* g,
                              cp_level_grads_res_shared_kernel<32>,
                              cp_level_grads_res_shared_kernel<64>};
   {
-    // more than 48 KB of dynamic shared memory has to be asked for, once
-    // per device
-    static std::mutex lock;
-    static bool allowed[nerfacc::kMaxDevices] = {};
-    std::lock_guard<std::mutex> guard(lock);
-    if (!allowed[device]) {
-      for (const Kernel kernel : kernels) {
-        err = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            kSharedBytesMax);
-        if (err != cudaSuccess) return static_cast<int>(err);
-      }
-      allowed[device] = true;
-    }
+    static SharedAllowance allowance;
+    err = allowance.ask(kernels, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   const bool whole = R % Rs == 0;
   const Kernel kernel =
       kernels[whole && Rs == 32 ? 1 : (whole && Rs == 64 ? 2 : 0)];
   // one block per SM: slices x chunks of equal work, no second wave
   const int slices = (R + Rs - 1) / Rs;
-  int chunks = sms / slices > 1 ? sms / slices : 1;
-  const int most = (B + kSharedMinSamples - 1) / kSharedMinSamples;
-  if (chunks > most) chunks = most;
-  int chunk = (B + chunks - 1) / chunks;
-  // a block addresses its rows with 32-bit offsets
-  const int longest = (int)(0x7fffffffLL / R) - 64;
-  if (longest < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (chunk > longest) chunk = longest;
-  chunks = (B + chunk - 1) / chunk;
+  int chunks = 0;
+  const int chunk = sample_chunks(B, R, slices, sms, kSharedMinSamples,
+                                  &chunks);
+  if (chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<dim3(slices, chunks), dim3(kFeatThreads, kSharedRows),
            static_cast<size_t>(bytes), s>>>(xu, g, r0, r1, r2, d0, d1, d2, B,
                                             G, R, Rs, chunk);

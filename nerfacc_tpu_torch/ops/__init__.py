@@ -2,6 +2,7 @@
 (the twin runs for CPU tensors; CUDA tensors launch the kernel)."""
 
 from .cp_encoder import (
+    cp_features_slice_width,
     cp_grads_slice_width,
     cp_level_features,
     cp_level_features_plain,
@@ -16,6 +17,8 @@ from .cp_encoder import (
 from .hash_gather import (
     hash_encode_lookup,
     hash_grad_scatter,
+    hash_grad_scatter_levels,
+    hash_grad_scatter_levels_plain,
     hash_grad_scatter_plain,
 )
 from .march_select import (
@@ -29,6 +32,7 @@ from .table_gather import table_gather, table_gather_plain
 
 __all__ = [
     "compact_live_slots",
+    "cp_features_slice_width",
     "cp_grads_slice_width",
     "cp_level_features",
     "cp_level_features_plain",
@@ -46,6 +50,8 @@ __all__ = [
     "fused_select_grouped_plain",
     "hash_encode_lookup",
     "hash_grad_scatter",
+    "hash_grad_scatter_levels",
+    "hash_grad_scatter_levels_plain",
     "hash_grad_scatter_plain",
     "table_gather",
     "table_gather_plain",

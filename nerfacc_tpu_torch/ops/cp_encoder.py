@@ -19,10 +19,13 @@ avoid gathers and scatters. Each basis row has exactly two nonzeros, so
 the CUDA kernels read (forward) or add into (backward) the two table rows
 each sample touches instead: no basis and no matrix product exist. The
 forward sums are the same as the TPU's; the backward's f32 sums over the
-batch run in atomic order, so they agree to f32 summation order. K4 keeps
-a block's partial gradient tables in shared memory and adds them to the
-gradient once per block (:func:`cp_grads_slice_width` says for which
-shapes); K3 adds every term to the gradient in device memory.
+batch run in atomic order, so they agree to f32 summation order. K1 and
+K2 stage a block's slice of the tables in shared memory, rounded to bf16
+once (:func:`cp_features_slice_width` says for which shapes; the others
+read the tables from device memory). K4 keeps a block's partial gradient
+tables in shared memory and adds them to the gradient once per block
+(:func:`cp_grads_slice_width`); K3 adds every term to the gradient in
+device memory.
 
 Two autograd ops wrap them, as the JAX package's ``custom_vjp``\\ s do:
 ``cp_level_features`` (K1 forward, K3 backward) and
@@ -116,22 +119,52 @@ def _table_ptrs(name, xu, tables):
     return ptrs, B, G, R, dev
 
 
+# shared memory one thread block may use on Hopper (227 KB)
+SHARED_BYTES_PER_BLOCK = 232448
+# below this many samples K1 and K2 read the tables from device memory:
+# staging them in every block would cost more than the batch
+FEATURES_SHARED_MIN_BATCH = 65536
+
+
+def cp_features_slice_width(grid_size: int, n_features: int, batch: int,
+                            budget: int = SHARED_BYTES_PER_BLOCK) -> int:
+    """How many of the R features one block of K1 / K2 stages in shared
+    memory as bf16: its three tables take ``3 * G * width * 2`` bytes.
+
+    The widest of 128, 64 and 32 that divides R and fits the budget (a
+    lane owns four features, a sample takes 32, 16 or 8 lanes of a warp).
+    0 where none does (R no multiple of 32, or G above ~1200) and for
+    batches below ``FEATURES_SHARED_MIN_BATCH``: the kernel that reads
+    the tables from device memory then runs.
+    """
+    if batch < FEATURES_SHARED_MIN_BATCH:
+        return 0
+    for width in (128, 64, 32):
+        if n_features % width == 0 and 3 * grid_size * width * 2 <= budget:
+            return width
+    return 0
+
+
 def _features(xu, t0, t1, t2) -> torch.Tensor:
-    """K1 (the plain twin for CPU tensors)."""
+    """K1 (the plain twin for CPU tensors). Two kernels compute it, chosen
+    by shape alone (:func:`cp_features_slice_width`) and counted under the
+    same ``launches``."""
     if xu.device.type == "cpu":
         return cp_level_features_plain(xu, t0, t1, t2)
     name = "cp_level_features"
     ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
     out = torch.empty((B, R), dtype=torch.float32, device=dev)
     _build.launch(name, "nerfacc_cp_level_features", dev,
-                  *ptrs, out.data_ptr(), B, G, R)
+                  *ptrs, out.data_ptr(), B, G, R,
+                  cp_features_slice_width(G, R, B))
     cp_level_features.launches += 1
     return out
 
 
 def cp_level_features_res_fwd(xu, t0, t1, t2):
     """K2: ``(features, (u0, u1, u2))``, the (B, R) f32 features and the
-    three (B, R) bf16 residuals (the plain twin for CPU tensors)."""
+    three (B, R) bf16 residuals (the plain twin for CPU tensors). Shares
+    K1's two kernels and their choice by shape."""
     if xu.device.type == "cpu":
         return cp_level_features_res_plain(xu, t0, t1, t2)
     name = "cp_level_features_res"
@@ -144,6 +177,7 @@ def cp_level_features_res_fwd(xu, t0, t1, t2):
     _build.launch(
         name, "nerfacc_cp_level_features_res", dev,
         *ptrs, out.data_ptr(), *(u.data_ptr() for u in residuals), B, G, R,
+        cp_features_slice_width(G, R, B),
     )
     cp_level_features_res.launches += 1
     return out, residuals
@@ -155,10 +189,6 @@ def _zero_grads(G, R, dev):
     grads = torch.zeros((3, G, R), dtype=torch.float32, device=dev)
     base, step = grads.data_ptr(), 4 * G * R
     return grads.unbind(0), (base, base + step, base + 2 * step)
-
-
-# shared memory one thread block may use on Hopper (227 KB)
-SHARED_BYTES_PER_BLOCK = 232448
 
 
 def cp_grads_slice_width(grid_size: int, n_features: int,

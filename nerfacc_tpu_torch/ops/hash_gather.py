@@ -1,30 +1,41 @@
 """Hash-table encoder core op: multi-level gather forward, table-gradient
 scatter backward (PyTorch port of :mod:`nerfacc_tpu.ops.hash_gather`).
 
-``hash_grad_scatter`` (K7) replaces the Pallas kernel
-``nerfacc_tpu/ops/hash_gather.py::hash_grad_scatter_packed``: the
-scatter-add of per-corner feature-pair cotangents into one level's (T, 2)
-table, skipping negative indices. The TPU has no scatter, so its kernel
-walks the corners serially over a lane-packed accumulator; the CUDA kernel
-(``csrc/hash_scatter.cu``) runs one thread per corner with an 8-byte
-``atomicAdd``, takes any batch size and needs no packing. Its wrapper
-takes the plain twin for CPU tensors only; for CUDA tensors it launches
-the kernel or raises. It counts its launches in
-``hash_grad_scatter.launches``.
+Two wrappers replace the Pallas kernel
+``nerfacc_tpu/ops/hash_gather.py::hash_grad_scatter_packed`` (K7; CUDA
+source ``csrc/hash_scatter.cu``):
+
+- ``hash_grad_scatter``, its counterpart by interface: the scatter-add of
+  per-corner feature-pair cotangents into one level's (T, 2) table,
+  skipping negative indices. One thread per corner with an 8-byte
+  ``atomicAdd``; any batch size, no packing.
+- ``hash_grad_scatter_levels``, the whole table gradient in one launch (what
+  the JAX package's ``_bwd_pallas`` computes with one kernel call per
+  level): it reads the encoder's own ``(N, L * 8)`` indices and weights and
+  the ``(N, 2 L)`` cotangent, forms ``w * g`` in registers, sums runs of
+  consecutive samples that hit the same entry before it adds them, and
+  adds into the flat ``(L * T, 2)`` gradient through the level offsets the
+  indices already carry.
+
+The TPU has no scatter, so its kernel walks the corners serially over a
+lane-packed accumulator. Each wrapper takes its plain twin for CPU tensors
+only; for CUDA tensors it launches the kernel or raises. Each counts its
+launches on itself (``.launches``).
 
 ``hash_encode_lookup`` is the encoder's autograd op, as the JAX package's
 ``custom_vjp``: the forward is plain PyTorch indexing (the JAX forward is
 XLA gathers outside any kernel) and reads the table **rounded to bf16**
 when ``packed_gather`` is set (the JAX package gathers bf16-packed pairs);
-the backward gives the table's gradient alone, per level, through
-``index_add_`` or, with ``pallas_scatter=True``, through K7. Sample
-positions get no gradient: sampling is stop-gradient everywhere.
+the backward gives the table's gradient alone, through per-level
+``index_add_`` or, with ``pallas_scatter=True``, through one launch of
+``hash_grad_scatter_levels``. Sample positions get no gradient: sampling
+is stop-gradient everywhere.
 
 Layouts for this card: the table is ``(L, T, F)``, a level's features of
 one entry adjacent, so one row gather reads every feature of a corner and
-K7 adds into a level's contiguous ``(T, 2)`` slice. The output stays
-feature-major ``(N, F * L)`` as in the JAX package (columns ``[:L]`` are
-feature 0 of every level), which the heads' weights depend on.
+K7 adds feature pairs into the contiguous ``(L * T, 2)`` gradient. The
+output stays feature-major ``(N, F * L)`` as in the JAX package (columns
+``[:L]`` are feature 0 of every level), which the heads' weights depend on.
 """
 
 from __future__ import annotations
@@ -108,6 +119,134 @@ def hash_grad_scatter(
 hash_grad_scatter.launches = 0
 
 
+# How hash_grad_scatter_levels cuts its work (csrc/hash_scatter.cu): a
+# thread sums the terms of SCATTER_RUN_LENGTH consecutive samples that hit
+# the same entry before it adds them, and the grid takes the levels in
+# groups of SCATTER_GROUP_LEVELS. Both measured on an H100 at the NGP
+# step's shape (scripts/bench_k1_k7_variants_torch.py): groups of 4 are
+# fastest on random and on ray-ordered points; a run of 8 already merges
+# most of what the coarse levels offer (0.60 adds per corner against 0.57
+# at 32) and keeps four times as many threads in flight.
+SCATTER_RUN_LENGTH = 8
+SCATTER_GROUP_LEVELS = 4
+
+
+def _check_levels_args(flat_idx, corner_w, g, d_table):
+    """``(N, L, T, F)`` of the multi-level table gradient's arguments."""
+    if d_table.dim() != 3:
+        raise ValueError(
+            f"hash_grad_scatter_levels: d_table must be (L, T, F), got "
+            f"{tuple(d_table.shape)}"
+        )
+    L, T, F = d_table.shape
+    N = flat_idx.shape[0]
+    if (tuple(flat_idx.shape) != (N, L * 8)
+            or tuple(corner_w.shape) != (N, L * 8)
+            or tuple(g.shape) != (N, F * L)):
+        raise ValueError(
+            f"hash_grad_scatter_levels: for d_table {tuple(d_table.shape)} "
+            f"flat_idx and corner_w must be (N, {L * 8}) and g (N, {F * L})"
+            f", got {tuple(flat_idx.shape)}, {tuple(corner_w.shape)} and "
+            f"{tuple(g.shape)}"
+        )
+    return N, L, T, F
+
+
+def _level_offsets(n_levels: int, n_entries: int, device) -> torch.Tensor:
+    """(L * 8,) int32: the first table row of each column's level."""
+    first = torch.arange(n_levels, dtype=torch.int32, device=device)
+    return (first * n_entries).repeat_interleave(8)
+
+
+def _index_add_levels(local_idx, corner_w, g, d_table) -> torch.Tensor:
+    """Per level, ``index_add_`` of ``corner_w * g`` at the level-local
+    indices ``local_idx`` (N, L * 8), all inside ``[0, T)``, into
+    ``d_table[level]``; any number of features F."""
+    L, T, F = d_table.shape
+    N = local_idx.shape[0]
+    dtype = d_table.dtype  # f32; the checks also sum in f64
+    w = corner_w.to(dtype)
+    # (N, F * L) feature-major -> (N, L, F)
+    g = g.to(dtype).reshape(N, F, L).permute(0, 2, 1)
+    for level in range(L):
+        sl = slice(level * 8, level * 8 + 8)
+        v = (w[:, sl, None] * g[:, level, None, :]).reshape(-1, F)
+        d_table[level].index_add_(0, local_idx[:, sl].reshape(-1).long(), v)
+    return d_table
+
+
+def hash_grad_scatter_levels_plain(
+    flat_idx: torch.Tensor,
+    corner_w: torch.Tensor,
+    g: torch.Tensor,
+    d_table: torch.Tensor,
+) -> torch.Tensor:
+    """The multi-level twin: per level, ``index_add_`` of ``corner_w * g``
+    into ``d_table[level]``, any number of features F. Indices outside
+    their level's ``[l T, (l + 1) T)`` add nothing (they add a zero to the
+    level's entry 0). Returns ``d_table``."""
+    _, L, T, _ = _check_levels_args(flat_idx, corner_w, g, d_table)
+    local = flat_idx - _level_offsets(L, T, flat_idx.device)
+    live = (local >= 0) & (local < T)
+    return _index_add_levels(
+        torch.where(live, local, torch.zeros_like(local)),
+        torch.where(live, corner_w, torch.zeros_like(corner_w)),
+        g, d_table)
+
+
+def hash_grad_scatter_levels(
+    flat_idx: torch.Tensor,
+    corner_w: torch.Tensor,
+    g: torch.Tensor,
+    d_table: torch.Tensor,
+) -> torch.Tensor:
+    """The table gradient of every level in one launch (K7; the plain
+    twin for CPU tensors): ``d_table[l, idx - l T] += corner_w * (g[:, l],
+    g[:, L + l])`` per corner, added in place into ``d_table``.
+
+    Args:
+        flat_idx: (N, L * 8) int32 indices into the (L * T) table rows,
+            level offsets included (level l's corners at columns ``l * 8
+            .. l * 8 + 8``). An index outside its level's ``[l T, (l + 1)
+            T)``, such as -1, adds nothing.
+        corner_w: (N, L * 8) f32 corner weights, same layout.
+        g: (N, 2 L) f32 cotangent of the encoder's output, feature-major.
+        d_table: (L, T, 2) f32, contiguous; zeroed by the caller for a
+            gradient.
+
+    Returns ``d_table``. Any N. Runs of consecutive samples that hit the
+    same entry are summed first, then added in atomic order: equal to any
+    other order up to f32 summation error.
+    """
+    if flat_idx.device.type == "cpu":
+        return hash_grad_scatter_levels_plain(flat_idx, corner_w, g, d_table)
+    name = "hash_grad_scatter_levels"
+    N, L, T, F = _check_levels_args(flat_idx, corner_w, g, d_table)
+    if F != 2:
+        raise ValueError(f"{name}: the kernel adds feature pairs, got F={F}")
+    if L * T >= 2 ** 31:
+        raise ValueError(f"{name}: L * T = {L * T} does not fit 31 bits")
+    dev = flat_idx.device
+    ptrs = (
+        _build.cuda_ptr(name, "flat_idx", flat_idx, torch.int32, (N, L * 8),
+                        dev),
+        _build.cuda_ptr(name, "corner_w", corner_w, torch.float32,
+                        (N, L * 8), dev),
+        _build.cuda_ptr(name, "g", g, torch.float32, (N, 2 * L), dev),
+        _build.cuda_ptr(name, "d_table", d_table, torch.float32, (L, T, 2),
+                        dev),
+    )
+    if ptrs[3] % 8:
+        raise ValueError(f"{name}: d_table must be 8-byte aligned")
+    _build.launch(name, "nerfacc_hash_grad_scatter_levels", dev, *ptrs,
+                  N, L, T, min(SCATTER_GROUP_LEVELS, L), SCATTER_RUN_LENGTH)
+    hash_grad_scatter_levels.launches += 1
+    return d_table
+
+
+hash_grad_scatter_levels.launches = 0
+
+
 class _HashEncodeLookup(torch.autograd.Function):
     """Gather + trilinear blend; the backward is the table gradient."""
 
@@ -130,19 +269,16 @@ class _HashEncodeLookup(torch.autograd.Function):
     def backward(ctx, g):
         flat_idx, corner_w = ctx.saved_tensors
         L, T, F = ctx.table_shape
-        N = flat_idx.shape[0]
-        # (N, F * L) feature-major -> (N, L, F)
-        g = g.to(torch.float32).reshape(N, F, L).permute(0, 2, 1)
+        g = g.to(torch.float32).contiguous()  # (N, F * L), feature-major
         d_table = torch.zeros((L, T, F), dtype=torch.float32,
                               device=g.device)
-        for level in range(L):
-            sl = slice(level * 8, level * 8 + 8)
-            idx_l = (flat_idx[:, sl] - level * T).reshape(-1)  # (8 N,)
-            v = (corner_w[:, sl, None] * g[:, level, None, :]).reshape(-1, F)
-            if ctx.pallas_scatter:
-                hash_grad_scatter(idx_l, v, T, out=d_table[level])
-            else:
-                d_table[level].index_add_(0, idx_l.long(), v)
+        if ctx.pallas_scatter:
+            hash_grad_scatter_levels(flat_idx, corner_w, g, d_table)
+        else:
+            # the encoder's own indices lie inside their levels: no mask
+            _index_add_levels(
+                flat_idx - _level_offsets(L, T, flat_idx.device), corner_w,
+                g, d_table)
         return d_table, None, None, None, None
 
 
@@ -165,9 +301,9 @@ def hash_encode_lookup(
         corner_w: (N, L * 8) f32 trilinear corner weights, same layout.
         n_entries_per_level: T.
         pallas_scatter: the table gradient through K7
-            (:func:`hash_grad_scatter`, once per level) instead of
-            per-level ``index_add_``. Needs F = 2: the kernel adds feature
-            pairs.
+            (:func:`hash_grad_scatter_levels`, one launch for all levels)
+            instead of per-level ``index_add_``. Needs F = 2: the kernel
+            adds feature pairs.
         packed_gather: read the table rounded to bf16 (the JAX package's
             packed pairs); False reads f32. ``"per_level"`` is not
             ported.

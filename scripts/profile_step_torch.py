@@ -2,8 +2,8 @@
 """Where the time of nerfacc_tpu_torch's training steps goes, on one
 NVIDIA GPU.
 
-    python3 scripts/profile_step_torch.py [--model ngp|tensocp|both]
-        [--steps N] [--trace_dir DIR]
+    python3 scripts/profile_step_torch.py [--model ngp|tensocp|both|render]
+        [--steps N] [--trace_dir DIR] [--scatter_run_length N]
 
 The steps are ``chip_smoke.py``'s, 16,384 rays and Adam: the reference NGP
 field at full width with live-sample compaction of the field, and the
@@ -17,12 +17,20 @@ both) it prints:
    time per step (their ratio is the busy share; the rest is the card
    waiting for the host), kernel launches and host-to-device copies per
    step, device ms per step by kernel name (the 25 largest), and the
-   hash-table scatter's ms per level;
+   per-level hash-table scatter's ms per level where it ran;
 3. for NGP, the step's layers on their own, timed with CUDA events at the
    shapes (393,216 compacted samples): the index arithmetic, the table
    gather and blend, the table gradient with the scatter kernel and with
-   ``index_add_``, the heads forward and backward, and Adam over the
-   table.
+   ``index_add_`` (on uniform random points and on points laid along
+   rays, as the step feeds them), the heads forward and backward, and
+   Adam over the table.
+
+``--model render`` profiles chip_smoke's four 128x128 render requests
+with the TensoCP field instead (kernel configuration; per request).
+``--scatter_run_length`` sets, for this run, how many consecutive samples
+a thread of the hash-table scatter sums before it adds
+(``ops.hash_gather.SCATTER_RUN_LENGTH``), to compare lengths inside the
+step.
 
 The card's name and power limit come first. The chrome traces go to
 ``<trace_dir>/<model>_step_<config>.json`` (default ``build/profiles``).
@@ -50,8 +58,8 @@ import chip_smoke as cs  # noqa: E402  (the scene, the ray stream, the timers)
 PROFILED_STEPS = 5
 
 
-def _trace_summary(path: Path, n_steps: int) -> None:
-    """Sums of the chrome trace's device events, per step."""
+def _trace_summary(path: Path, n_steps: int, unit: str = "step") -> None:
+    """Sums of the chrome trace's device events, per step (or request)."""
     events = json.loads(path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
@@ -70,16 +78,18 @@ def _trace_summary(path: Path, n_steps: int) -> None:
     kernels = sum(1 for e in dev if e["cat"] == "kernel")
     h2d = sum(1 for e in dev if e["cat"] == "gpu_memcpy"
               and "HtoD" in e["name"])
-    print(f"  profiled {n_steps} steps: device busy "
+    print(f"  profiled {n_steps} {unit}s: device busy "
           f"{busy / n_steps / 1e3:.3f} ms of {wall / n_steps / 1e3:.3f} ms "
-          f"wall per step ({100 * busy / wall:.1f}% busy); "
+          f"wall per {unit} ({100 * busy / wall:.1f}% busy); "
           f"{kernels / n_steps:.0f} kernel launches and {h2d / n_steps:.1f} "
-          "host-to-device copies per step")
+          f"host-to-device copies per {unit}")
     for name, (dur, count) in sorted(by_name.items(),
                                      key=lambda kv: -kv[1][0])[:25]:
-        print(f"    {dur / n_steps / 1e3:8.3f} ms/step  {count / n_steps:6.1f}"
-              f" x  {name[:110]}")
-    scatter = sorted((e for e in dev if "hash_grad_scatter" in e["name"]),
+        print(f"    {dur / n_steps / 1e3:8.3f} ms/{unit}  "
+              f"{count / n_steps:6.1f} x  {name[:110]}")
+    # the per-level kernel only (the one-launch entry is one line above)
+    scatter = sorted((e for e in dev
+                      if "hash_grad_scatter_kernel" in e["name"]),
                      key=lambda e: e["ts"])
     if scatter:
         per_level = defaultdict(list)
@@ -117,6 +127,24 @@ def profile_config(dev, model: str, name: str, kernels: bool, batch,
     _trace_summary(trace, PROFILED_STEPS)
 
 
+def profile_render(dev, trace_dir: Path) -> None:
+    """chip_smoke's render requests, kernel configuration."""
+    field, grid = cs.make_scene(dev, use_kernel=True)
+    requests = cs.make_requests(dev)
+    cs._serve(field, grid, requests, True)  # warm-up
+    _, ms = cs._serve(field, grid, requests, True)
+    print(f"render kernels: request median {statistics.median(ms):.3f} ms "
+          f"(min {min(ms):.3f}, max {max(ms):.3f}) over {len(ms)} requests")
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    trace = trace_dir / "render_requests_kernels.json"
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        cs._serve(field, grid, requests, True)
+    prof.export_chrome_trace(str(trace))
+    _trace_summary(trace, len(requests), "request")
+
+
 def layer_times(dev) -> None:
     """The NGP step's layers on their own at the step's shapes."""
     from nerfacc_tpu_torch.models import (
@@ -143,14 +171,24 @@ def layer_times(dev) -> None:
         ms = cs.median_ms(lambda: hash_encode_lookup(
             enc.table, idx, w, enc.n_entries), 10)
     print(f"  table gather and blend (lookup forward): {ms:.3f} ms")
-    for label, scatter in (("scatter kernel", True), ("index_add_", False)):
-        def fwd_bwd():
-            enc.table.grad = None
-            hash_encode_lookup(enc.table, idx, w, enc.n_entries,
-                               scatter).backward(g)
-        total = cs.median_ms(fwd_bwd, 10)
-        print(f"  lookup forward + table gradient ({label}): {total:.3f} ms "
-              f"(gradient alone {total - ms:.3f} ms)")
+    ray_idx, ray_w = hash_grid_indices(
+        cs.ray_ordered_points(dev), enc._res, enc._dense, enc.n_entries)
+    with torch.no_grad():
+        ray_ms = cs.median_ms(lambda: hash_encode_lookup(
+            enc.table, ray_idx, ray_w, enc.n_entries), 10)
+    for points, (pi, pw, fwd) in (("uniform random points", (idx, w, ms)),
+                                  ("ray-ordered points",
+                                   (ray_idx, ray_w, ray_ms))):
+        for label, scatter in (("scatter kernel", True),
+                               ("index_add_", False)):
+            def fwd_bwd():
+                enc.table.grad = None
+                hash_encode_lookup(enc.table, pi, pw, enc.n_entries,
+                                   scatter).backward(g)
+            total = cs.median_ms(fwd_bwd, 10)
+            print(f"  lookup forward + table gradient ({label}, {points}): "
+                  f"{total:.3f} ms (gradient alone {total - fwd:.3f} ms)")
+    del ray_idx, ray_w
     feats = torch.as_tensor(
         rng.randn(n, enc.latent_dim).astype(np.float32) * 1e-4, device=dev)
     heads = [p for k, p in field.named_parameters() if k != "encoder.table"]
@@ -173,8 +211,9 @@ def layer_times(dev) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("ngp", "tensocp", "both"),
+    ap.add_argument("--model", choices=("ngp", "tensocp", "both", "render"),
                     default="both")
+    ap.add_argument("--scatter_run_length", type=int, default=None)
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--trace_dir", type=Path,
                     default=ROOT / "build" / "profiles")
@@ -183,6 +222,13 @@ def main() -> None:
     t0 = time.perf_counter()
     cs.phase_build()
     print(f"build and load: {time.perf_counter() - t0:.1f} s")
+    if args.scatter_run_length is not None:
+        from nerfacc_tpu_torch.ops import hash_gather
+
+        hash_gather.SCATTER_RUN_LENGTH = args.scatter_run_length
+        print(f"scatter run length: {args.scatter_run_length}")
+    if args.model == "render":
+        profile_render(dev, args.trace_dir)
     o, d, px = cs.bench_stream(dev, 8)
     batch = [(o[i], d[i], px[i]) for i in range(8)]
     for model in ("tensocp", "ngp"):

@@ -8,12 +8,13 @@ JAX):
 This file imports no JAX. Tolerances: masks bit-equal and t within
 rtol 1e-5 / atol 1e-6 (the march kernels keep the plain chain's f32
 operations; only cumsum order differs); CP features within 1e-6 absolute
-(both sum the same two exact products) and the bf16 residuals equal; CP
-table gradients within 1e-5 of the largest |gradient| (the kernels add
-in atomic order, the plain product in cuBLAS's order); the hash-table
-scatter within 1e-5 of the largest |sum| (atomic order against
-``index_add_``'s); the table gather bit-equal (indices outside the table
-clamped into it, as the kernel documents).
+(both sum the same two exact products; bit-equal through either of the
+forward's two kernels) and the bf16 residuals equal; CP table gradients
+within 1e-5 of the largest |gradient| (the kernels add in atomic order,
+the plain product in cuBLAS's order); the hash-table scatter, per level
+and all levels in one launch, within 1e-5 of the largest |sum| (atomic
+order against ``index_add_``'s); the table gather bit-equal (indices
+outside the table clamped into it, as the kernel documents).
 """
 
 import numpy as np
@@ -23,7 +24,10 @@ import torch
 from nerfacc_tpu_torch import _build
 from nerfacc_tpu_torch.convert import grid_from_arrays
 from nerfacc_tpu_torch.models import NGPRadianceField, TensoCPRadianceField
+from nerfacc_tpu_torch.models import hash_grid_indices
+from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
 from nerfacc_tpu_torch.ops import (
+    cp_features_slice_width,
     cp_grads_slice_width,
     cp_level_features,
     cp_level_features_plain,
@@ -39,6 +43,8 @@ from nerfacc_tpu_torch.ops import (
     fused_select_grouped,
     fused_select_grouped_plain,
     hash_grad_scatter,
+    hash_grad_scatter_levels,
+    hash_grad_scatter_levels_plain,
     hash_grad_scatter_plain,
     table_gather,
     table_gather_plain,
@@ -108,6 +114,51 @@ def test_cp_kernel_matches_plain(cuda_device, G, R):
     assert cp_level_features.launches == before + 1
     torch.testing.assert_close(got, cp_level_features_plain(*args),
                                rtol=0.0, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,R,B,width", [
+    (128, 64, 131072, 64),    # the coarse level whole, a chunk of update_grid
+    (512, 128, 131072, 64),   # the fine level in two slices
+    (512, 128, 70001, 64),    # ragged chunks and a ragged last run
+    (128, 128, 70001, 128),   # a warp per sample
+    (64, 96, 70001, 32),      # three slices of 32, four samples per step
+    (2048, 32, 70001, 0),     # tables beyond a block's shared memory
+    (128, 48, 70001, 0),      # R no multiple of 32
+    (128, 64, 1, 0),          # small batches read the tables from memory
+    (512, 128, 65535, 0),
+])
+def test_cp_forward_kernels_are_bit_equal(cuda_device, G, R, B, width):
+    # K1 and K2 through both of their kernels, chosen by shape, with
+    # samples at u == 0 and u == G - 1 (one tap) at the start and the end
+    assert cp_features_slice_width(G, R, B) == width
+    rng = np.random.RandomState(17)
+    xu = rng.rand(B, 3).astype(np.float32)
+    xu[:10] = 1.0
+    xu[10:20] = 0.0
+    xu[-3:] = 1.0
+    tables = [(rng.randn(G, R) * 0.2).astype(np.float32) for _ in range(3)]
+    args = [torch.as_tensor(a, device=cuda_device) for a in (xu, *tables)]
+    before = (cp_level_features.launches, cp_level_features_res.launches)
+    got = cp_level_features(*args)
+    feats, us = cp_level_features_res_fwd(*args)
+    torch.cuda.synchronize()
+    assert (cp_level_features.launches,
+            cp_level_features_res.launches) == (before[0] + 1, before[1] + 1)
+    want, want_us = cp_level_features_res_plain(*args)
+    assert torch.equal(got, want) and torch.equal(feats, want)
+    for u, w in zip(us, want_us):
+        assert u.dtype == torch.bfloat16 and torch.equal(u, w)
+    if width:
+        # tables 4 bytes off a 16-byte boundary: the other kernel, by pointer
+        store = torch.empty(3 * G * R + 1, device=cuda_device)
+        views = []
+        for i, t in enumerate(args[1:]):
+            v = store[1 + i * G * R:1 + (i + 1) * G * R].view(G, R)
+            v.copy_(t)
+            views.append(v)
+        assert views[0].data_ptr() % 16 == 4
+        assert torch.equal(cp_level_features(args[0], *views), want)
 
 
 def _assert_grads_close(got, want):
@@ -269,6 +320,82 @@ def test_hash_scatter_kernel_matches_plain(cuda_device, T, B):
         hash_grad_scatter(idx, v, T, out=grad[:, :, 0])
 
 
+def _ray_points(n_rays, per_ray, seed):
+    """Points along rays, front to back, a step of 5e-3 / 3 apart in the
+    unit cube: consecutive samples share cells on the coarse levels."""
+    rng = np.random.RandomState(seed)
+    o = rng.rand(n_rays, 1, 3) * 0.6 + 0.2
+    d = rng.randn(n_rays, 1, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = (rng.rand(n_rays, 1, 1) * 0.1
+         + np.arange(per_ray)[None, :, None] * (5e-3 / 3))
+    return np.clip(o + t * d, 0.0, 1.0).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points,N,offset", [
+    ("random", 20003, 0),
+    ("rays", 24 * 833, 0),
+    ("rays", 24 * 833 + 5, 0),   # a ragged last run
+    ("rays", 24 * 833, 1),       # rows 4 bytes off a 16-byte boundary
+    ("random", 1, 0),
+    ("random", 0, 0),
+])
+def test_hash_scatter_levels_kernel_matches_plain(cuda_device, points, N,
+                                                  offset):
+    # 8 levels over 2^14 entries: dense and hashed; the sums of the
+    # kernel (runs first, then atomic order) against index_add_'s
+    L, T = 8, 1 << 14
+    res = _level_resolutions(L, 16, 1.4472692012786865)
+    rng = np.random.RandomState(18)
+    x = (_ray_points(N // 24 + 1, 24, 19)[:N] if points == "rays"
+         else rng.rand(N, 3).astype(np.float32))
+    idx, w = hash_grid_indices(
+        torch.as_tensor(x, device=cuda_device),
+        torch.as_tensor(res, device=cuda_device),
+        torch.as_tensor((res + 1) ** 3 <= T, device=cuda_device), T)
+    g = torch.as_tensor(rng.randn(N, 2 * L).astype(np.float32),
+                        device=cuda_device)
+    g[5::29] = 0.0         # samples the kernel skips
+    idx[::17, 8:16] = -1   # padding: skipped
+    idx[3::17, 16:24] -= T  # level 2's corners pointing into level 1
+    if offset:
+        # the same rows through views that start off a 16-byte boundary
+        def shifted(t):
+            store = torch.empty(t.numel() + offset, dtype=t.dtype,
+                                device=cuda_device)
+            view = store[offset:].view(t.shape)
+            view.copy_(t)
+            assert view.data_ptr() % 16 == 4 * offset
+            return view
+        idx, w = shifted(idx), shifted(w)
+    before = hash_grad_scatter_levels.launches
+    d_table = torch.zeros((L + 1, T, 2), device=cuda_device)
+    out = hash_grad_scatter_levels(idx, w, g, d_table[:L])
+    torch.cuda.synchronize()
+    assert hash_grad_scatter_levels.launches == before + 1
+    assert out.data_ptr() == d_table.data_ptr()
+    assert not bool(d_table[L].any())  # nothing past the last level
+    want = hash_grad_scatter_levels_plain(idx, w, g,
+                                          torch.zeros_like(d_table[:L]))
+    if N == 0:
+        assert not bool(out.any())
+        return
+    want64 = hash_grad_scatter_levels_plain(
+        idx, w.double(), g.double(),
+        torch.zeros((L, T, 2), dtype=torch.float64, device=cuda_device))
+    scale = float(want64.abs().max())
+    assert float((out - want).abs().max()) <= GRAD_REL * scale
+    assert float((out.double() - want64).abs().max()) <= GRAD_REL * scale
+    with pytest.raises(TypeError):
+        hash_grad_scatter_levels(idx.long(), w, g, d_table[:L])
+    with pytest.raises(ValueError):
+        hash_grad_scatter_levels(  # not contiguous
+            idx, w, g, d_table[:, :, :1].expand(L + 1, T, 2)[:L])
+    with pytest.raises(ValueError):
+        hash_grad_scatter_levels(idx, w, g[:, :-1], d_table[:L])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", [0, 1, 3, 4, 262144 + 37, 1000003])
 def test_table_gather_kernel_matches_plain(cuda_device, N):
@@ -370,14 +497,14 @@ def test_ngp_train_step_on_card_matches_cpu(cuda_device):
         with torch.no_grad():  # a table of order 1: the encoder matters
             field.encoder.table.mul_(1e4)
         opt = torch.optim.Adam(field.parameters(), lr=5e-4)
-        k7 = hash_grad_scatter.launches
+        k7 = hash_grad_scatter_levels.launches
         loss, n = train_step(field, opt, grid, o, d, px,
                              field_samples_budget=64 * 12, **kw)
         grads = {k: p.grad.detach().cpu() for k, p in field.named_parameters()}
         results.append((float(loss), int(n), grads,
-                        hash_grad_scatter.launches - k7))
+                        hash_grad_scatter_levels.launches - k7))
     (loss_c, n_c, g_c, l_c), (loss_h, n_h, g_h, l_h) = results
-    assert (l_c, l_h) == (4, 0)  # once per level
+    assert (l_c, l_h) == (1, 0)  # one launch for all levels
     assert abs(loss_c - loss_h) <= 1e-5 * loss_h
     assert abs(n_c - n_h) <= 2 and n_h > 200
     for k, want in g_h.items():

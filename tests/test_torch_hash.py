@@ -15,7 +15,8 @@ Tolerances, with their reasons:
   1e-6 of the largest |output| (tables of order 1).
 - ``hash_grad_scatter`` and the table gradients sum f32 terms in another
   order: the JAX package's own bounds for its kernel against XLA
-  (rtol 1e-5 / atol 1e-5, and rtol 1e-4 / atol 1e-6).
+  (rtol 1e-5 / atol 1e-5, and rtol 1e-4 / atol 1e-6); the multi-level
+  table gradient within 1e-5 of the largest |gradient|.
 - field outputs pass two or three small f32 MLPs: 1e-5.
 """
 
@@ -45,6 +46,8 @@ from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
 from nerfacc_tpu_torch.ops import (
     hash_encode_lookup,
     hash_grad_scatter,
+    hash_grad_scatter_levels,
+    hash_grad_scatter_levels_plain,
     hash_grad_scatter_plain,
     table_gather,
     table_gather_plain,
@@ -215,6 +218,116 @@ def test_hash_grad_scatter_plain_matches_jax_kernel():
     np.testing.assert_allclose(out.numpy() - 1.0, want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError):
         hash_grad_scatter(torch.as_tensor(idx), torch.as_tensor(v[:, :1]), T)
+
+
+def _levels_case(seed, n=203, n_features=2):
+    """(flat_idx, corner_w, g, T, L) of the SMALL encoder at ``n`` points
+    (no multiple of 8), as numpy."""
+    L, T = SMALL["n_levels"], 1 << SMALL["log2_hashmap_size"]
+    res = _level_resolutions(L, SMALL["base_resolution"],
+                             1.4472692012786865)
+    rng = np.random.RandomState(seed)
+    x = _points(n, list(res), seed=seed)
+    idx, w = hash_grid_indices(
+        torch.as_tensor(x), torch.as_tensor(res),
+        torch.as_tensor((res + 1) ** 3 <= T), T)
+    g = rng.randn(n, n_features * L).astype(np.float32)
+    return idx.numpy().copy(), w.numpy().copy(), g, T, L
+
+
+@pytest.mark.parametrize("pallas_scatter", [True, False])
+def test_multi_level_table_gradient_twin_matches_jax(pallas_scatter):
+    # the JAX package's whole backward (Pallas scatter in interpret mode, or
+    # XLA's per-level scatter-adds) against the port's multi-level twin
+    idx, w, g, T, L = _levels_case(seed=21)
+    rng = np.random.RandomState(22)
+    dead = rng.rand(*idx.shape) < 0.1
+    idx[dead] = -1
+    if not pallas_scatter:
+        # XLA's scatter wraps -1 round to the level's last entry: give the
+        # dead corners no weight, so that both add nothing
+        w[dead] = 0.0
+    want, _, _ = jax_hash_gather._lookup_bwd(
+        T, pallas_scatter, True,
+        (jnp.asarray(idx), jnp.asarray(w), (2 * L * T,)), jnp.asarray(g))
+    want = ngp_table_from_flax(np.asarray(want), L, 2)
+    got = hash_grad_scatter_levels_plain(
+        torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(g),
+        torch.zeros((L, T, 2)))
+    assert got.shape == (L, T, 2) and got.dtype == torch.float32
+    scale = np.abs(want).max()
+    assert scale > 0.1
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * scale)
+    # a CPU tensor takes the twin through the wrapper and launches nothing
+    before = hash_grad_scatter_levels.launches
+    out = torch.ones((L, T, 2))
+    same = hash_grad_scatter_levels(
+        torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(g), out)
+    assert same is out and hash_grad_scatter_levels.launches == before
+    np.testing.assert_allclose(out.numpy() - 1.0, want, rtol=0,
+                               atol=1e-5 * scale)
+
+
+def test_multi_level_twin_skips_indices_outside_their_level():
+    idx, w, g, T, L = _levels_case(seed=23)
+    base = hash_grad_scatter_levels_plain(
+        torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(g),
+        torch.zeros((L, T, 2)))
+    # level 1's corners of some samples point into level 0, level 2 and
+    # past the table: none of them may add anything
+    moved = idx.copy()
+    moved[::5, 8:16] -= T
+    moved[1::5, 8:16] += T
+    moved[2::5, 8:16] = L * T + 3
+    keep = np.ones(idx.shape[0], bool)
+    keep[::5] = keep[1::5] = keep[2::5] = False
+    w_kept = w.copy()
+    w_kept[~keep, 8:16] = 0.0
+    want = hash_grad_scatter_levels_plain(
+        torch.as_tensor(idx), torch.as_tensor(w_kept), torch.as_tensor(g),
+        torch.zeros((L, T, 2)))
+    got = hash_grad_scatter_levels_plain(
+        torch.as_tensor(moved), torch.as_tensor(w), torch.as_tensor(g),
+        torch.zeros((L, T, 2)))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert not np.array_equal(got.numpy(), base.numpy())
+    for bad in (
+        lambda: hash_grad_scatter_levels(
+            torch.as_tensor(idx), torch.as_tensor(w),
+            torch.as_tensor(g[:, :-1]), torch.zeros((L, T, 2))),
+        lambda: hash_grad_scatter_levels(
+            torch.as_tensor(idx[:, :-8]), torch.as_tensor(w),
+            torch.as_tensor(g), torch.zeros((L, T, 2))),
+        lambda: hash_grad_scatter_levels(
+            torch.as_tensor(idx), torch.as_tensor(w), torch.as_tensor(g),
+            torch.zeros((L * T, 2))),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.parametrize("n_features", [2, 4])
+def test_lookup_backward_equals_the_per_level_loop(n_features):
+    # the op's backward (pallas_scatter on where F = 2 allows it) against
+    # the loop it replaced: one hash_grad_scatter or index_add_ per level
+    idx, w, g, T, L = _levels_case(seed=24, n_features=n_features)
+    F = n_features
+    idx, w, g = (torch.as_tensor(a) for a in (idx, w, g))
+    table = torch.zeros((L, T, F), requires_grad=True)
+    hash_encode_lookup(table, idx, w, T, pallas_scatter=F == 2).backward(g)
+    gl = g.reshape(-1, F, L).permute(0, 2, 1)
+    want = torch.zeros((L, T, F))
+    for level in range(L):
+        sl = slice(level * 8, level * 8 + 8)
+        idx_l = (idx[:, sl] - level * T).reshape(-1)
+        v = (w[:, sl, None] * gl[:, level, None, :]).reshape(-1, F)
+        if F == 2:
+            hash_grad_scatter(idx_l, v, T, out=want[level])
+        else:
+            want[level].index_add_(0, idx_l.long(), v)
+    # the same f32 terms in the same order
+    np.testing.assert_array_equal(table.grad.numpy(), want.numpy())
+    assert float(want.abs().max()) > 0.1
 
 
 @pytest.mark.parametrize("pallas_grad", [False, True])

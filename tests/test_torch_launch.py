@@ -1,6 +1,6 @@
 """The launch path of the port's kernel wrappers and what surrounds the
 two kernels shaped for the card, as far as a machine without a GPU can
-run them: the choice of K4's slice of features, ``_build.launch`` against
+run them: the choice of K1's and K4's slices of features, ``_build.launch`` against
 a stand-in for the library and the CUDA runtime, ``_zero_grads``' one
 allocation, and ``table_gather`` on CPU tensors (its plain twin).
 """
@@ -11,6 +11,7 @@ import torch
 
 from nerfacc_tpu_torch import _build
 from nerfacc_tpu_torch.ops import (
+    cp_features_slice_width,
     cp_grads_slice_width,
     table_gather,
     table_gather_plain,
@@ -53,6 +54,44 @@ def test_cp_grads_slice_width_follows_the_budget():
     assert cp_grads_slice_width(512, 128, budget=48 * 1024) == 0
     assert cp_grads_slice_width(128, 64, budget=48 * 1024) == 32
     assert cp_grads_slice_width(128, 64, budget=3 * 128 * 64 * 4) == 64
+
+
+@pytest.mark.parametrize("G,R,want", [
+    (128, 64, 64),     # the coarse flagship level: whole, 48 KB of bf16
+    (512, 128, 64),    # the fine one: two slices of 64, 192 KB
+    (128, 128, 128),   # 96 KB: all 128 features, a warp per sample
+    (512, 96, 32),     # 32 divides 96, 64 does not
+    (1210, 32, 32),    # the largest G whose 32 features fit
+    (1211, 32, 0),
+    (2048, 128, 0),    # tables beyond a block: read from device memory
+    (33, 8, 0),        # R below 32
+    (128, 48, 0),      # R no multiple of 32
+    (128, 66, 0),      # R no multiple of 4
+])
+def test_cp_features_slice_width(G, R, want):
+    width = cp_features_slice_width(G, R, 786432)
+    assert width == want
+    assert width in (0, 32, 64, 128)
+    if width:
+        assert R % width == 0 and 3 * G * width * 2 <= SHARED_BYTES
+        # nothing wider that divides R would fit
+        for wider in (64, 128):
+            if wider > width and R % wider == 0:
+                assert 3 * G * wider * 2 > SHARED_BYTES
+    else:
+        assert R % 32 or 3 * G * 32 * 2 > SHARED_BYTES
+
+
+def test_cp_features_slice_width_follows_batch_and_budget():
+    floor = cp_encoder.FEATURES_SHARED_MIN_BATCH
+    # small batches read the tables from device memory
+    assert cp_features_slice_width(128, 64, 1) == 0
+    assert cp_features_slice_width(128, 64, floor - 1) == 0
+    assert cp_features_slice_width(128, 64, floor) == 64
+    assert cp_features_slice_width(512, 128, 131072) == 64
+    assert cp_features_slice_width(512, 128, 131072, budget=100 * 1024) == 32
+    assert cp_features_slice_width(512, 128, 131072, budget=48 * 1024) == 0
+    assert cp_features_slice_width(128, 64, 131072, budget=48 * 1024) == 64
 
 
 def test_zero_grads_is_one_allocation():
