@@ -20,10 +20,14 @@ Phases (any failed check raises, and the script exits nonzero):
    K4 once more at G = 1024, where its tables exceed
    a block's shared memory and it takes its global-atomic kernel; march
    selection at 12,288 rays x 32 groups x 64 slots (cone 0 and 0.004),
-   re-selection at 12,288 rays x 64 -> 32 slots; the hash-table gradient
-   scatter (K7) at the NGP step's 3,145,728 corners for each of the 16
-   levels (dense and hashed, every 17th index -1), also against a float64
-   ``index_add_``, and its one-launch entry for all 16 levels at 393,216
+   re-selection at 12,288 rays x 64 -> 32 slots, both also per call over
+   ten calls back to back and over twenty replayed from a CUDA graph (no
+   host work between the launches) and, checked only, at 48 slots, 64
+   groups, 48 -> 24 and 80 -> 32 slots, 12,289 rays, and at rows longer
+   than a warp holds at once (1,100 groups, 300 -> 200 slots); the
+   hash-table gradient scatter (K7) at the NGP step's 3,145,728 corners
+   for each of the 16 levels (dense and hashed, every 17th index -1),
+   also against a float64 ``index_add_``, and its one-launch entry for all 16 levels at 393,216
    samples, on uniform random points and on points laid along rays as the
    step feeds them; the table gather (K8) into a 2^19-word table at
    262,144 indices and at 6,291,456 (one level's corners), and at a
@@ -231,6 +235,23 @@ def median_ms(fn, iters: int = 20, calls: int = 1) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, iters: int = 20) -> float:
+    """Per-call time on the card alone: ``calls`` calls of ``fn`` captured
+    into one CUDA graph and replayed, so that no host work lies between
+    the launches (a short kernel's wrapper costs the host more than the
+    kernel costs the card). Median over ``iters`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return median_ms(graph.replay, iters) / calls
+
+
 def bound(n_bytes: float, n_ops: float) -> dict:
     """The least time the card could take: the larger of the bytes moved
     (each input read once, each output written once) over the memory rate
@@ -289,10 +310,6 @@ def phase_kernels(dev: torch.device) -> list:
     from nerfacc_tpu_torch.ops import (
         cp_level_features,
         cp_level_features_plain,
-        fused_reselect,
-        fused_reselect_plain,
-        fused_select_grouped,
-        fused_select_grouped_plain,
     )
 
     rng = np.random.RandomState(SEED)
@@ -353,35 +370,91 @@ def phase_kernels(dev: torch.device) -> list:
     ))
     report += check_cp_training_kernels(dev, rng, xu)
 
+    report += check_march_kernels(dev, rng)
+    report += check_hash_kernels(dev)
+    return report
+
+
+def _check_quad(name, got, want) -> float:
+    """A march kernel's four outputs against the twin's: the mask
+    bit-equal, the three t within T_RTOL / T_ATOL; the largest error."""
+    _check_equal(f"{name} ok", got[3], want[3])
+    return max(_check_close(f"{name} {n}", a, b, T_RTOL, T_ATOL)
+               for n, a, b in zip(("ts", "te", "dt"), got[:3], want[:3]))
+
+
+def _select_inputs(dev, rng, R, G, C):
+    gsize = rng.randint(1, C + 1, size=(R, 1))
+    live = rng.randint(0, C + 1, size=(R, G)) * (rng.rand(R, G) < 0.4)
+    live = torch.as_tensor(np.minimum(live, gsize), dtype=torch.int32,
+                           device=dev)
+    gsize = torch.as_tensor(gsize, dtype=torch.int32, device=dev)
+    t_min = torch.as_tensor(rng.rand(R).astype(np.float32) * 2.0 + 0.05,
+                            device=dev)
+    return live, gsize, t_min
+
+
+def _reselect_inputs(dev, rng, R, K):
+    masks = torch.as_tensor(rng.rand(R, K) < 0.5, device=dev)
+    ts = torch.as_tensor(
+        np.sort(rng.rand(R, K), axis=1).astype(np.float32) * 3.0, device=dev)
+    dt = torch.as_tensor(
+        (rng.rand(R, K) * 0.01 + 1e-3).astype(np.float32), device=dev)
+    return masks, ts, ts + dt, dt
+
+
+def check_march_kernels(dev, rng) -> list:
+    """K5 and K6 against their twins: at the render's shapes (timed, one
+    wrapper call between two events, ten calls back to back, which the
+    host's share of a call still bounds, and twenty calls replayed from a
+    CUDA graph, the card's time alone), then
+    checked only at the training step's 48 slots, at 64 groups
+    (``probe_groups=None``), at the evaluation's 48 -> 24 slots, at a K
+    above 64, at an R that 4 does not divide, and at rows longer than the
+    kernels hold at once (more than 512 groups, more than 128 output
+    slots)."""
+    from nerfacc_tpu_torch.ops import (
+        fused_reselect,
+        fused_reselect_plain,
+        fused_select_grouped,
+        fused_select_grouped_plain,
+    )
+
+    report = []
     # K5: grouped slot selection + lattice
     C = SLICE_KW["coarse_stride"]
     sel = {}
     for cone in (0.0, 0.004):
-        gsize = rng.randint(1, C + 1, size=(R_SLICE, 1))
-        live = rng.randint(0, C + 1, size=(R_SLICE, G_PROBE)) * (
-            rng.rand(R_SLICE, G_PROBE) < 0.4)
-        live = torch.as_tensor(np.minimum(live, gsize), dtype=torch.int32,
-                               device=dev)
-        gsize = torch.as_tensor(gsize, dtype=torch.int32, device=dev)
-        t_min = torch.as_tensor(rng.rand(R_SLICE).astype(np.float32) * 2.0
-                                + 0.05, device=dev)
+        args = _select_inputs(dev, rng, R_SLICE, G_PROBE, C)
         kw = dict(k_slots=K_SLOTS, step_size=5e-3, cone_angle=cone)
-        got = fused_select_grouped(live, gsize, t_min, **kw)
-        want = fused_select_grouped_plain(live, gsize, t_min, **kw)
+        got = fused_select_grouped(*args, **kw)
+        want = fused_select_grouped_plain(*args, **kw)
         torch.cuda.synchronize()
-        _check_equal(f"fused_select_grouped cone={cone} ok", got[3], want[3])
-        err = max(
-            _check_close(f"fused_select_grouped cone={cone} {n}", a, b,
-                         T_RTOL, T_ATOL)
-            for n, a, b in zip(("ts", "te", "dt"), got[:3], want[:3])
-        )
-        ms = median_ms(lambda: fused_select_grouped(live, gsize, t_min, **kw))
-        pms = median_ms(
-            lambda: fused_select_grouped_plain(live, gsize, t_min, **kw))
+        err = _check_quad(f"fused_select_grouped cone={cone}", got, want)
+        ms = median_ms(lambda: fused_select_grouped(*args, **kw))
+        ms10 = median_ms(lambda: fused_select_grouped(*args, **kw), calls=10)
+        gms = graph_ms(lambda: fused_select_grouped(*args, **kw))
+        pms = median_ms(lambda: fused_select_grouped_plain(*args, **kw))
         print(f"K5 fused_select_grouped R={R_SLICE} G={G_PROBE} K={K_SLOTS} "
-              f"cone={cone}: kernel {ms:.4f} ms  plain {pms:.4f} ms  "
+              f"cone={cone}: kernel {ms:.4f} ms, ten calls back to back "
+              f"{ms10:.4f} ms per call, replayed from a CUDA graph "
+              f"{gms:.4f} ms per call  plain {pms:.4f} ms  "
               f"max_abs_err {err:.3e}")
-        sel[cone] = (ms, pms, err)
+        sel[cone] = dict(ms=ms, back_to_back_ms=ms10, graph_ms=gms,
+                         plain_ms=pms, max_abs_err=err)
+    other_err = 0.0
+    for R, G, K, cone in ((R_SLICE, G_PROBE, 48, 0.004),
+                          (R_SLICE, 64, K_SLOTS, 0.0),
+                          (R_SLICE + 1, G_PROBE, K_SLOTS, 0.0),
+                          (1001, 1100, 300, 0.0)):
+        args = _select_inputs(dev, rng, R, G, C)
+        kw = dict(k_slots=K, step_size=5e-3, cone_angle=cone)
+        err = _check_quad(f"fused_select_grouped R={R} G={G} K={K}",
+                          fused_select_grouped(*args, **kw),
+                          fused_select_grouped_plain(*args, **kw))
+        print(f"K5 fused_select_grouped R={R} G={G} K={K} cone={cone}: masks "
+              f"bit-equal, max_abs_err {err:.3e}")
+        other_err = max(other_err, err)
     # reads live (R, G) i32, the group size and t_min per ray; writes three
     # (R, K) f32 and the (R, K) bool; ~10 flop per slot (three lattice
     # points at cone 0)
@@ -392,43 +465,48 @@ def phase_kernels(dev: torch.device) -> list:
         name="fused_select_grouped", route="cuda",
         source="nerfacc_tpu_torch/csrc/march_select.cu",
         replaces="nerfacc_tpu/ops/march_select.py:136",
-        max_abs_err=max(v[2] for v in sel.values()),
-        ms=sel[0.0][0], plain_ms=sel[0.0][1], library_ms=None,
-        **select_bound,
+        **dict(sel[0.0], max_abs_err=max(
+            other_err, *(v["max_abs_err"] for v in sel.values()))),
+        library_ms=None, **select_bound,
     ))
 
     # K6: stage-2 re-selection
-    masks = torch.as_tensor(rng.rand(R_SLICE, K_SLOTS) < 0.5, device=dev)
-    ts = torch.as_tensor(
-        np.sort(rng.rand(R_SLICE, K_SLOTS), axis=1).astype(np.float32) * 3.0,
-        device=dev)
-    dt = torch.as_tensor(
-        (rng.rand(R_SLICE, K_SLOTS) * 0.01 + 1e-3).astype(np.float32),
-        device=dev)
-    te = ts + dt
-    got = fused_reselect(masks, ts, te, dt, k2=K_VISIBLE)
-    want = fused_reselect_plain(masks, ts, te, dt, k2=K_VISIBLE)
+    args = _reselect_inputs(dev, rng, R_SLICE, K_SLOTS)
+    got = fused_reselect(*args, k2=K_VISIBLE)
+    want = fused_reselect_plain(*args, k2=K_VISIBLE)
     torch.cuda.synchronize()
-    _check_equal("fused_reselect ok", got[3], want[3])
-    err = max(
-        _check_close(f"fused_reselect {n}", a, b, T_RTOL, T_ATOL)
-        for n, a, b in zip(("ts", "te", "dt"), got[:3], want[:3])
-    )
-    ms = median_ms(lambda: fused_reselect(masks, ts, te, dt, k2=K_VISIBLE))
-    pms = median_ms(
-        lambda: fused_reselect_plain(masks, ts, te, dt, k2=K_VISIBLE))
+    err = _check_quad("fused_reselect", got, want)
+    ms = median_ms(lambda: fused_reselect(*args, k2=K_VISIBLE))
+    ms10 = median_ms(lambda: fused_reselect(*args, k2=K_VISIBLE), calls=10)
+    gms = graph_ms(lambda: fused_reselect(*args, k2=K_VISIBLE))
+    pms = median_ms(lambda: fused_reselect_plain(*args, k2=K_VISIBLE))
     print(f"K6 fused_reselect R={R_SLICE} K={K_SLOTS} k2={K_VISIBLE}: "
-          f"kernel {ms:.4f} ms  plain {pms:.4f} ms  max_abs_err {err:.3e}")
+          f"kernel {ms:.4f} ms, ten calls back to back {ms10:.4f} ms per "
+          f"call, replayed from a CUDA graph {gms:.4f} ms per call  plain "
+          f"{pms:.4f} ms  max_abs_err {err:.3e}")
+    for R, K, K2 in ((R_SLICE, 48, 24), (R_SLICE, 80, 32),
+                     (R_SLICE + 1, K_SLOTS, K_VISIBLE), (1001, 300, 200)):
+        args_x = _reselect_inputs(dev, rng, R, K)
+        got = fused_reselect(*args_x, k2=K2)
+        want = fused_reselect_plain(*args_x, k2=K2)
+        err_x = _check_quad(f"fused_reselect R={R} K={K} k2={K2}", got, want)
+        # the gathered t are copies
+        _check_equal(f"fused_reselect R={R} K={K} k2={K2} ts", got[0], want[0])
+        _check_equal(f"fused_reselect R={R} K={K} k2={K2} te", got[1], want[1])
+        print(f"K6 fused_reselect R={R} K={K} k2={K2}: masks and gathered t "
+              f"bit-equal, max_abs_err {err_x:.3e}")
+        err = max(err, err_x)
     report.append(dict(
         name="fused_reselect", route="cuda",
         source="nerfacc_tpu_torch/csrc/march_select.cu",
         replaces="nerfacc_tpu/ops/march_select.py:259",
-        max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+        max_abs_err=err, ms=ms, back_to_back_ms=ms10, graph_ms=gms,
+        plain_ms=pms,
+        library_ms=None,
         # reads the (R, K) bool and three (R, K) f32; writes three (R, K2)
         # f32 and the (R, K2) bool; one add per source slot
         **bound(R_SLICE * 13 * (K_SLOTS + K_VISIBLE), R_SLICE * K_SLOTS),
     ))
-    report += check_hash_kernels(dev)
     return report
 
 

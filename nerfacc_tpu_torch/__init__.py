@@ -14,6 +14,7 @@ unless the caller passes ``device``.
 
 from .contraction import ContractionType, contract, contract_inv
 from .grid import (
+    Grid,
     OccupancyGrid,
     create_grid,
     dilate_binary,
@@ -44,12 +45,16 @@ from .utils import render_image, render_rays
 from .vol_rendering import (
     accumulate_along_rays_dense,
     render_transmittance_from_alpha_dense,
+    render_transmittance_from_density_dense,
     render_visibility_dense,
+    render_weight_from_alpha_dense,
     render_weight_from_density_dense,
+    rendering_dense,
 )
 
 __all__ = [
     "ContractionType",
+    "Grid",
     "OccupancyGrid",
     "RaySegments",
     "accumulate_along_rays_dense",
@@ -71,8 +76,11 @@ __all__ = [
     "render_image",
     "render_rays",
     "render_transmittance_from_alpha_dense",
+    "render_transmittance_from_density_dense",
     "render_visibility_dense",
+    "render_weight_from_alpha_dense",
     "render_weight_from_density_dense",
+    "rendering_dense",
     "reselect_visible",
     "samples_needed_for_range",
     "select_slots",

@@ -125,6 +125,9 @@ class OccupancyGrid:
         return vals
 
 
+Grid = OccupancyGrid  # the reference toolbox's name for the grid type
+
+
 def with_binary(grid: OccupancyGrid, binary: torch.Tensor) -> OccupancyGrid:
     """Replace the binary mask, keeping the dilated tables in sync."""
     binary = binary.to(device=grid.binary.device, dtype=torch.bool)

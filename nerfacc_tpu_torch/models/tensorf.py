@@ -180,6 +180,11 @@ class TensoCPRadianceField(nn.Module):
             return density, feat
         return density
 
+    def query_opacity(self, x: torch.Tensor, step_size: float):
+        """``query_density(x) * step_size``: what ``update_grid``'s
+        ``occ_eval_fn`` returns per cell, (N, 1)."""
+        return self.query_density(x) * step_size
+
     def forward(self, positions, directions=None):
         density, feat = self.query_density(positions, return_feat=True)
         if self.use_viewdirs and directions is not None:

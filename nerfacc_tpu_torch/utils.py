@@ -150,7 +150,7 @@ def render_rays(
     pixels), gathered with the compacted rays. ``return_compact`` skips the
     expand-back and returns the compacted outputs with the selection,
     ``(colors, opacities, depths, n_samples, sel)`` with ``sel =
-    {"ray_indices", "ray_ok", "aux"}`` (plus ``sel["extras"]`` with
+    {"ray_indices" (int32), "ray_ok", "aux"}`` (plus ``sel["extras"]`` with
     ``return_extras``); without ray compaction the selection is every ray.
     Rays left out render exactly ``render_bkgd``, so a full-batch loss
     follows algebraically (``training.compact_mse``).
@@ -189,8 +189,10 @@ def render_rays(
         # the first H hit rays; slots past the last hit point at the last
         # ray and are invalid
         posr, okr, _ = select_slots(hit[None, :], H, decimate=False)
-        ridx, ray_ok = posr[0].long(), okr[0]
-        ray_sel = (ridx, ray_ok)
+        # int32 as the JAX package returns it; PyTorch's row gathers and
+        # index_copy_ take int64, cast where they index
+        ray_sel = (posr[0], okr[0])
+        ridx = posr[0].long()
         rays_o, rays_d = rays_o[ridx], rays_d[ridx]
         t_min, t_max = t_min[ridx], t_max[ridx]
         live_groups = live_g[ridx]
@@ -286,7 +288,7 @@ def render_rays(
 
     if return_compact:
         ridx, ray_ok = ray_sel if ray_sel is not None else (
-            torch.arange(n_rays, device=masks.device),
+            torch.arange(n_rays, dtype=torch.int32, device=masks.device),
             torch.ones((n_rays,), dtype=torch.bool, device=masks.device),
         )
         sel = {"ray_indices": ridx, "ray_ok": ray_ok, "aux": aux}
@@ -300,7 +302,7 @@ def render_rays(
         # slots write into an extra drop row, cut off after, so no real
         # row is written by them
         ridx, ray_ok = ray_sel
-        dest = torch.where(ray_ok, ridx, torch.full_like(ridx, n_out))
+        dest = torch.where(ray_ok, ridx, torch.full_like(ridx, n_out)).long()
 
         def expand(vals, fill):
             fill = torch.as_tensor(fill, dtype=vals.dtype, device=vals.device)

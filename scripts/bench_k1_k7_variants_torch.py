@@ -53,7 +53,9 @@ SASS_CLASSES = (("atomics", r"\b(ATOM|RED|ATOMS|ATOMG)\b"),
                 ("global loads", r"\bLDG\b"), ("global stores", r"\bSTG\b"))
 
 
-def sass_counts(sass_dir: Path) -> None:
+def sass_counts(sass_dir: Path, names=("scatter", "features")) -> None:
+    """SASS instruction counts of the built library's kernels whose name
+    holds one of ``names``; the listings go to ``sass_dir``."""
     from nerfacc_tpu_torch import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -68,7 +70,7 @@ def sass_counts(sass_dir: Path) -> None:
     sass_dir.mkdir(parents=True, exist_ok=True)
     for chunk in out.stdout.split("Function : ")[1:]:
         name = chunk.split("\n", 1)[0].strip()
-        if "scatter" not in name and "features" not in name:
+        if not any(n in name for n in names):
             continue
         lines = [ln for ln in chunk.splitlines()
                  if re.search(r"/\*[0-9a-f]{4}\*/", ln)]

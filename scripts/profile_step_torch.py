@@ -16,8 +16,9 @@ both) it prints:
 2. from a ``torch.profiler`` trace of 5 steps: device-busy time and wall
    time per step (their ratio is the busy share; the rest is the card
    waiting for the host), kernel launches and host-to-device copies per
-   step, device ms per step by kernel name (the 25 largest), and the
-   per-level hash-table scatter's ms per level where it ran;
+   step, device ms per step by kernel name (the 25 largest, then every
+   hand-written kernel of the package below them), and the per-level
+   hash-table scatter's ms per level where it ran;
 3. for NGP, the step's layers on their own, timed with CUDA events at the
    shapes (393,216 compacted samples): the index arithmetic, the table
    gather and blend, the table gradient with the scatter kernel and with
@@ -41,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import sys
 import time
@@ -83,8 +85,11 @@ def _trace_summary(path: Path, n_steps: int, unit: str = "step") -> None:
           f"wall per {unit} ({100 * busy / wall:.1f}% busy); "
           f"{kernels / n_steps:.0f} kernel launches and {h2d / n_steps:.1f} "
           f"host-to-device copies per {unit}")
-    for name, (dur, count) in sorted(by_name.items(),
-                                     key=lambda kv: -kv[1][0])[:25]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the 25 longest, then any hand-written kernel of the package below them
+    own = re.compile(r"^(void )?\(anonymous namespace\)::")
+    shown = ranked[:25] + [kv for kv in ranked[25:] if own.match(kv[0])]
+    for name, (dur, count) in shown:
         print(f"    {dur / n_steps / 1e3:8.3f} ms/{unit}  "
               f"{count / n_steps:6.1f} x  {name[:110]}")
     # the per-level kernel only (the one-launch entry is one line above)

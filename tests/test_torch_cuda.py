@@ -7,7 +7,8 @@ JAX):
 
 This file imports no JAX. Tolerances: masks bit-equal and t within
 rtol 1e-5 / atol 1e-6 (the march kernels keep the plain chain's f32
-operations; only cumsum order differs); CP features within 1e-6 absolute
+operations; only cumsum order differs; the t that re-selection gathers
+are copies, bit-equal); CP features within 1e-6 absolute
 (both sum the same two exact products; bit-equal through either of the
 forward's two kernels) and the bf16 residuals equal; CP table gradients
 within 1e-5 of the largest |gradient| (the kernels add in atomic order,
@@ -527,6 +528,69 @@ def test_reselect_kernel_matches_plain(cuda_device):
     args = _reselect_args(1001, 64, seed=10, device=cuda_device)
     _assert_quads(fused_reselect(*args, k2=32),
                   fused_reselect_plain(*args, k2=32))
+
+
+def _off_boundary(t):
+    """A copy of ``t`` whose storage starts 4 bytes off a 16-byte
+    boundary (element size 4) or 1 byte off it (bool)."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = store[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1001, 12289])
+@pytest.mark.parametrize("G,K", [
+    (16, 8), (16, 80), (32, 24), (32, 48), (32, 64), (64, 48), (64, 64),
+    (33, 5), (1100, 300),  # ragged rows; more groups than a chunk holds
+])
+def test_select_kernel_shapes(cuda_device, R, G, K):
+    live, gsize, t_min = _select_args(R, G, 16, K, seed=13,
+                                      device=cuda_device)
+    live[0] = 0  # an all-dead ray
+    live[1], gsize[1] = 16, 16  # every group full: count > K, decimated
+    live[2], gsize[2] = 0, 16  # count == K exactly, in the last groups
+    full, rest = divmod(K, 16)
+    live[2, G - full:] = 16
+    if rest:
+        live[2, G - full - 1] = rest
+    assert int(live[2].sum()) == K
+    cone = 0.004 if G == 32 else 0.0
+    kw = dict(k_slots=K, step_size=5e-3, cone_angle=cone)
+    want = fused_select_grouped_plain(live, gsize, t_min, **kw)
+    _assert_quads(fused_select_grouped(live, gsize, t_min, **kw), want)
+    # the same rows through views off a 16-byte boundary
+    got = fused_select_grouped(_off_boundary(live)[1:],
+                               _off_boundary(gsize)[1:],
+                               _off_boundary(t_min)[1:], **kw)
+    _assert_quads(got, tuple(w[1:] for w in want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1001, 12289])
+@pytest.mark.parametrize("K,K2", [
+    (8, 8), (24, 8), (48, 24), (64, 24), (64, 32), (80, 32), (45, 45),
+    (33, 7), (300, 200),  # more output slots than a tile holds
+])
+def test_reselect_kernel_shapes(cuda_device, R, K, K2):
+    masks, ts, te, dt = _reselect_args(R, K, seed=14, device=cuda_device)
+    masks[0] = False  # an all-dead ray
+    masks[1] = True  # an all-live ray
+    masks[2] = False  # count == K2 * stride exactly
+    masks[2, :(2 * K2 if 2 * K2 <= K else K2)] = True
+    masks[3] = False  # the last source slot only
+    masks[3, K - 1] = True
+    want = fused_reselect_plain(masks, ts, te, dt, k2=K2)
+    got = fused_reselect(masks, ts, te, dt, k2=K2)
+    _assert_quads(got, want)
+    # the gathered t are copies: bit-equal
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    off = fused_reselect(*(_off_boundary(a)[1:] for a in (masks, ts, te, dt)),
+                         k2=K2)
+    _assert_quads(off, tuple(w[1:] for w in want))
+    assert torch.equal(off[0], want[0][1:])
 
 
 @pytest.mark.cuda

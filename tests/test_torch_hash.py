@@ -426,6 +426,23 @@ def test_ngp_field_matches_jax(unbounded):
     assert float(rgb_t.std()) > 1e-2  # the encoder drives the colors
 
 
+@pytest.mark.parametrize("unbounded", [False, True])
+def test_ngp_query_opacity_matches_jax(unbounded):
+    jfield, params, tfield = _ngp_pair(unbounded)
+    rng = np.random.RandomState(6)
+    x = (rng.rand(300, 3) * 2.6 - 1.3).astype(np.float32)
+    step = 5e-3
+    want = jfield.apply(params, jnp.asarray(x), step,
+                        method=jfield.query_opacity)
+    with torch.no_grad():
+        got = tfield.query_opacity(torch.as_tensor(x), step)
+        dens = tfield.query_density(torch.as_tensor(x))
+    assert got.shape == (300, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5 * step)
+    assert torch.equal(got, dens * step) and float(got.max()) > 0
+
+
 def test_ngp_from_flax_refuses_a_mismatch():
     _, params, tfield = _ngp_pair(False)
     wrong = NGPRadianceField(aabb=AABB, n_levels=4, log2_hashmap_size=12,

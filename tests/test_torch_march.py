@@ -1,6 +1,7 @@
 """The port's march path vs the JAX package: contraction, ray/AABB
 intersection, the closed-form lattice, occupancy-grid queries, the grouped
-march and the dense forward rendering.
+march and the dense rendering (forward, the alpha weights' closed-form
+gradient, ``rendering_dense``), and the names the port exports.
 
 Inputs come from numpy seeds and go to both packages. Integer and boolean
 results (grid bits, slot masks) must be bit-equal. Float results agree to
@@ -10,6 +11,7 @@ own order, so t values move by ~1e-7 (rtol 1e-5 / atol 1e-6).
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -206,3 +208,113 @@ def test_dense_rendering_forward_matches_jax():
                                            T["masks"]),
            jvr.accumulate_along_rays_dense(w_j, jnp.asarray(rgb), J["masks"]))
     _close(pvr.accumulate_along_rays_dense(w_t), jvr.accumulate_along_rays_dense(w_j))
+
+
+def _dense_case(seed, with_masks, R=16, K=24):
+    rng = np.random.RandomState(seed)
+    ts = np.sort(rng.rand(R, K) * 3, axis=1).astype(np.float32)
+    te = (ts + rng.rand(R, K) * 0.05 + 1e-3).astype(np.float32)
+    sig = (rng.rand(R, K) * 20).astype(np.float32)
+    masks = rng.rand(R, K) < 0.8 if with_masks else None
+    rgb = rng.rand(R, K, 3).astype(np.float32)
+    return ts, te, sig, masks, rgb
+
+
+def _opt(fn, a):
+    return None if a is None else fn(a)
+
+
+@pytest.mark.parametrize("with_masks", [True, False])
+def test_alpha_weights_and_gradient_match_jax(with_masks):
+    ts, te, sig, masks, _ = _dense_case(11, with_masks)
+    alphas = (1.0 - np.exp(-sig * (te - ts))).astype(np.float32)
+    alphas[0, 3] = 1.0  # an opaque slot: every later weight is exactly 0
+    g = np.random.RandomState(12).randn(*alphas.shape).astype(np.float32)
+    w_j, vjp = jax.vjp(
+        lambda a: jvr.render_weight_from_alpha_dense(
+            a, masks=_opt(jnp.asarray, masks)),
+        jnp.asarray(alphas))
+    a_t = torch.as_tensor(alphas).requires_grad_()
+    w_t = pt.render_weight_from_alpha_dense(
+        a_t, masks=_opt(torch.as_tensor, masks))
+    _close(w_t.detach(), w_j)
+    if not with_masks or masks[0, 3]:
+        assert bool((w_t[0, 4:] == 0).all())
+    w_t.backward(torch.as_tensor(g))
+    _close(a_t.grad, vjp(jnp.asarray(g))[0], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_masks", [True, False])
+def test_transmittance_from_density_dense_matches_jax(with_masks):
+    ts, te, sig, masks, _ = _dense_case(13, with_masks)
+    got = pt.render_transmittance_from_density_dense(
+        *map(torch.as_tensor, (ts, te, sig)),
+        masks=_opt(torch.as_tensor, masks))
+    want = jvr.render_transmittance_from_density_dense(
+        *map(jnp.asarray, (ts, te, sig)), masks=_opt(jnp.asarray, masks))
+    _close(got, want)
+    assert bool((got[:, 0] == 1).all())
+
+
+@pytest.mark.parametrize("with_masks", [True, False])
+@pytest.mark.parametrize("kind", ["sigma", "alpha"])
+def test_rendering_dense_matches_jax(kind, with_masks):
+    ts, te, sig, masks, rgb = _dense_case(14, with_masks)
+
+    def callbacks(xp, exp):
+        rgbs, sigmas = xp(rgb), xp(sig)
+        if kind == "sigma":
+            return dict(rgb_sigma_fn=lambda a, b: (rgbs, sigmas))
+        return dict(
+            rgb_alpha_fn=lambda a, b: (rgbs, 1.0 - exp(-sigmas * (b - a))))
+
+    want = jx.rendering_dense(
+        jnp.asarray(ts), jnp.asarray(te), _opt(jnp.asarray, masks),
+        render_bkgd=jnp.ones(3), **callbacks(jnp.asarray, jnp.exp))
+    got = pt.rendering_dense(
+        torch.as_tensor(ts), torch.as_tensor(te),
+        _opt(torch.as_tensor, masks), render_bkgd=torch.ones(3),
+        **callbacks(torch.as_tensor, torch.exp))
+    for a, b, width in zip(got, want, (3, 1, 1)):
+        assert a.shape == (ts.shape[0], width)
+        _close(a, b)
+    with pytest.raises(ValueError):
+        pt.rendering_dense(torch.as_tensor(ts), torch.as_tensor(te), None)
+
+
+def test_rendering_dense_gradient_matches_jax():
+    # the field callback's sigma gradient through the closed-form backward
+    ts, te, sig, masks, rgb = _dense_case(15, True)
+
+    def loss_j(s):
+        c, o, d = jx.rendering_dense(
+            jnp.asarray(ts), jnp.asarray(te), jnp.asarray(masks),
+            rgb_sigma_fn=lambda a, b: (jnp.asarray(rgb), s))
+        return jnp.sum(c ** 2) + jnp.sum(o) + jnp.sum(d * 0.5)
+
+    s_t = torch.as_tensor(sig).requires_grad_()
+    c, o, d = pt.rendering_dense(
+        torch.as_tensor(ts).requires_grad_(), torch.as_tensor(te),
+        torch.as_tensor(masks),
+        rgb_sigma_fn=lambda a, b: (torch.as_tensor(rgb), s_t))
+    (torch.sum(c ** 2) + torch.sum(o) + torch.sum(d * 0.5)).backward()
+    _close(s_t.grad, jax.grad(loss_j)(jnp.asarray(sig)), rtol=1e-4,
+           atol=1e-6)
+
+
+def test_port_exports_the_reference_names_it_claims():
+    # every name the port lists is one the JAX package lists or a name of
+    # the port's own path, and each resolves
+    for name in pt.__all__:
+        assert getattr(pt, name) is not None, name
+    shared = set(pt.__all__) & set(jx.__all__)
+    for name in ("Grid", "OccupancyGrid", "rendering_dense",
+                 "render_weight_from_alpha_dense",
+                 "render_weight_from_density_dense",
+                 "render_visibility_dense", "accumulate_along_rays_dense",
+                 "march_rays", "RaySegments", "update_grid"):
+        assert name in shared, name
+    for name in ("render_transmittance_from_alpha_dense",
+                 "render_transmittance_from_density_dense"):
+        assert name in pt.__all__ and hasattr(jvr, name)
+    assert pt.Grid is pt.OccupancyGrid and jx.Grid is jx.OccupancyGrid

@@ -210,7 +210,8 @@ def test_port_imports_no_jax():
         "nerfacc_tpu_torch.ops.table_gather, "
         "nerfacc_tpu_torch.models.hash_encoding\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import bench_hash_torch, profile_step_torch\n"
+        "import bench_hash_torch, profile_step_torch, "
+        "bench_march_select_torch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'nerfacc_tpu'))\n"
         "assert not bad, bad\n"

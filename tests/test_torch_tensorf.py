@@ -135,3 +135,18 @@ def test_unbounded_field_matches_jax():
                                atol=1e-5)
     np.testing.assert_allclose(sig_t.numpy(), np.asarray(sig_j), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_query_opacity_matches_jax(use_kernel):
+    jfield, params, tfield, x, _ = _pair(use_kernel, density_bias=1.0)
+    step = 5e-3
+    want = jfield.apply(params, jnp.asarray(x), step,
+                        method=jfield.query_opacity)
+    with torch.no_grad():
+        got = tfield.query_opacity(torch.as_tensor(x), step)
+        dens = tfield.query_density(torch.as_tensor(x))
+    assert got.shape == (256, 1) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-5 * step)
+    assert torch.equal(got, dens * step) and float(got.max()) > 0

@@ -285,6 +285,8 @@ def test_compact_render_matches_jax(scene):
     assert ct.shape == (48, 3)  # the compacted rays
     np.testing.assert_array_equal(st["ray_indices"].numpy(),
                                   np.asarray(sj["ray_indices"]))
+    assert st["ray_indices"].dtype == torch.int32
+    assert np.asarray(sj["ray_indices"]).dtype == np.int32
     np.testing.assert_array_equal(st["ray_ok"].numpy(),
                                   np.asarray(sj["ray_ok"]))
     np.testing.assert_array_equal(st["aux"].numpy(), np.asarray(sj["aux"]))
@@ -299,7 +301,8 @@ def test_compact_render_matches_jax(scene):
     with torch.no_grad():
         *_, st = render_rays(tfield, torch.as_tensor(o), torch.as_tensor(d),
                              grid=tgrid, aux=torch.as_tensor(px), **kw)
-    assert torch.equal(st["ray_indices"], torch.arange(N_RAYS))
+    assert torch.equal(st["ray_indices"],
+                       torch.arange(N_RAYS, dtype=torch.int32))
     assert bool(st["ray_ok"].all()) and st["aux"] is not None
     # the full-batch extras carry the dropped count too
     with torch.no_grad():
