@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of nerfacc_tpu_torch's render path, TensoCP training step and
-hash-NGP training step on one NVIDIA GPU.
+"""Smoke run of nerfacc_tpu_torch's render path, TensoCP training step,
+hash-NGP training step and TensoCP trainer on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,7 +16,9 @@ Phases (any failed check raises, and the script exits nonzero):
    PyTorch's ``table[idx]``). Then kernels vs plain twins on the card, at
    the main paths' shapes: the CP encoder's forward (K1), residual
    forward (K2) and table gradients (K3, K4) at 786,432 samples for both
-   TensoCP levels (K1 also at 131,072, one chunk of ``update_grid``), and
+   TensoCP levels (K1 also at 131,072, one chunk of ``update_grid``; K3
+   also on points laid along rays, against its first kernel in the same
+   process, timed as one wrapper call and from a CUDA graph), and
    K4 once more at G = 1024, where its tables exceed
    a block's shared memory and it takes its global-atomic kernel; march
    selection at 12,288 rays x 32 groups x 64 slots (cone 0 and 0.004),
@@ -70,6 +72,14 @@ Phases (any failed check raises, and the script exits nonzero):
    through ``render_image`` with the NGP field.
 8. ``scripts/bench_hash_torch.py r5gather`` (K8 beside PyTorch's
    indexing).
+9. The TensoCP trainer, ``examples/train_ngp_nerf_torch.py``, at the
+   flagship drive's flags with the kernels: 1,000 steps on the procedural
+   scene (GT rendered on the card), then the PSNR of 3 held-out views,
+   which must reach 32.5; train seconds, live samples per second,
+   ``field_budget_dropped`` and the kernels' launches over the run. Then
+   each kernel of the run (K1, K2, K4, K5, K6) against its plain twin on
+   the inputs the run gave it (the first call at each shape), and K5 / K6
+   also on random rows at those shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' launches (in all and per path), errors and times as
@@ -177,6 +187,15 @@ HASH_GRAD_REL = 1e-5
 # flip; sums run in another order. Loss within 1e-5 relative, each
 # gradient within 1e-3 in L2 norm.
 NGP_LOSS_RTOL, NGP_GRAD_L2 = 1e-5, 1e-3
+# The trainer's flagship drive (examples/train_ngp_nerf_torch.py): its
+# seed and the held-out PSNR it must reach, the JAX package's regression
+# line for this command (its own run reads 33.03; the port's runs read
+# 33.54-34.18 over three seeds with and without kernels, PERF.md section 5).
+TRAINER_SEED, TRAINER_PSNR_FLOOR = 42, 32.5
+# the trainer's kernels are held against their twins on the inputs the
+# drive gave them: the first call at each shape, at most this many shapes
+# per kernel
+TRAINER_SHAPES_KEPT = 8
 # the card's published peaks, for the least time a kernel could take
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12
 
@@ -281,6 +300,19 @@ def _check_close(name, got, want, rtol, atol) -> float:
             f"{atol} (max abs err {err:.3e})"
         )
     return err
+
+
+def _grads_err(label, got, want):
+    """CP table gradients: the max abs error over the three tables, each
+    held to CP_GRAD_REL of its twin's largest entry; and the largest such
+    entry."""
+    err, scale = 0.0, 0.0
+    for a, (d, w) in enumerate(zip(got, want)):
+        top = float(w.abs().max())
+        err = max(err, _check_close(f"{label} dT{a}", d, w, 0.0,
+                                    CP_GRAD_REL * top))
+        scale = max(scale, top)
+    return err, scale
 
 
 def _check_equal(name, got, want) -> None:
@@ -513,31 +545,22 @@ def check_march_kernels(dev, rng) -> list:
 def check_cp_training_kernels(dev, rng, xu) -> list:
     """K2, K3 and K4 against their twins at the training step's shapes:
     786,432 samples (with u == 0 and u == G - 1 on every axis), both
-    levels, a random f32 cotangent."""
+    levels, a random f32 cotangent; K3 (``check_k3``) also on points laid
+    along rays and against its first kernel."""
     from nerfacc_tpu_torch.ops import (
         cp_grads_slice_width,
         cp_level_features,
         cp_level_features_res_fwd,
         cp_level_features_res_plain,
-        cp_level_grads,
-        cp_level_grads_plain,
         cp_level_grads_res,
         cp_level_grads_res_plain,
     )
 
-    def grads_err(label, got, want):
-        """Max abs error over the three tables, each held to CP_GRAD_REL
-        of its twin's largest entry; and the largest such entry."""
-        err, scale = 0.0, 0.0
-        for a, (d, w) in enumerate(zip(got, want)):
-            top = float(w.abs().max())
-            err = max(err, _check_close(f"{label} dT{a}", d, w, 0.0,
-                                        CP_GRAD_REL * top))
-            scale = max(scale, top)
-        return err, scale
-
-    acc = {k: [0.0, 0.0, 0.0] for k in ("K2", "K3", "K4")}  # ms, plain, err
+    acc = {k: [0.0, 0.0, 0.0] for k in ("K2", "K4")}  # ms, plain, err
     bounds = {k: [] for k in acc}
+    xu_by_order = {"random": xu, "ray-ordered": ray_ordered_points(
+        dev, B_SAMPLES // TRAIN_RAYS)}
+    k3 = {}
     for g, r in ((128, 64), (512, 128)):
         tables = [
             torch.as_tensor(rng.randn(g, r).astype(np.float32) * 0.2,
@@ -563,32 +586,25 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
             lambda: cp_level_features_res_plain(xu, *tables),
         )]
 
-        for key, name, fn, plain in (
-            ("K3", "cp_level_grads",
-             lambda: cp_level_grads(xu, *tables, cot),
-             lambda: cp_level_grads_plain(xu, *tables, cot)),
-            ("K4", "cp_level_grads_res",
-             lambda: cp_level_grads_res(xu, cot, *us, g),
-             lambda: cp_level_grads_res_plain(xu, cot, *us, g)),
-        ):
-            got, want = fn(), plain()
-            torch.cuda.synchronize()
-            err, scale = grads_err(f"{key} {shape}", got, want)
-            print(f"{key} {name} {shape}: max abs err {err:.3e} = "
-                  f"{err / scale:.2e} x max|dT| {scale:.3e}")
-            timed.append((key, name, err, fn, plain))
-            del got, want
+        k3[f"G={g} R={r}"] = check_k3(dev, xu_by_order, tables, cot)
+        fn = lambda: cp_level_grads_res(xu, cot, *us, g)  # noqa: E731
+        plain = lambda: cp_level_grads_res_plain(xu, cot, *us, g)  # noqa: E731
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err, scale = _grads_err(f"K4 {shape}", got, want)
+        print(f"K4 cp_level_grads_res {shape}: max abs err {err:.3e} = "
+              f"{err / scale:.2e} x max|dT| {scale:.3e}")
+        timed.append(("K4", "cp_level_grads_res", err, fn, plain))
+        del got, want
 
         for key, name, err, fn, plain in timed:
             ms = median_ms(fn)
             pms = median_ms(plain, 3)
             # K2 reads xu and the tables and writes (B, R) f32 plus three
-            # (B, R) bf16; K3 reads xu, the tables and g and writes three
-            # (G, R) f32; K4 reads xu, g and the three bf16 residuals.
-            # ~11 flop per output (K2), ~21 per cotangent (K3, K4: three
-            # axes x (two products, two weighted adds) and roundings)
+            # (B, R) bf16; K4 reads xu, g and the three bf16 residuals.
+            # ~11 flop per output (K2), ~21 per cotangent (K4: three axes x
+            # (two products, two weighted adds) and roundings)
             nb = {"K2": 4 * (3 * B_SAMPLES + 3 * g * r) + 10 * B_SAMPLES * r,
-                  "K3": 4 * (3 * B_SAMPLES + 6 * g * r + B_SAMPLES * r),
                   "K4": 4 * (3 * B_SAMPLES + 3 * g * r) + 10 * B_SAMPLES * r,
                   }[key]
             b = bound(nb, (11 if key == "K2" else 21) * B_SAMPLES * r)
@@ -620,7 +636,7 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
     got = cp_level_grads_res(xs, cot, *us, g)
     want = cp_level_grads_res_plain(xs, cot, *us, g)
     torch.cuda.synchronize()
-    err, scale = grads_err(f"K4 global route G={g}", got, want)
+    err, scale = _grads_err(f"K4 global route G={g}", got, want)
     ms = median_ms(lambda: cp_level_grads_res(xs, cot, *us, g))
     print(f"K4 cp_level_grads_res B={b} G={g} R={r} (global atomics: "
           f"{3 * g * 32 * 4} bytes of tables for 32 features exceed a "
@@ -631,15 +647,102 @@ def check_cp_training_kernels(dev, rng, xu) -> list:
     torch.cuda.empty_cache()
 
     names = {"K2": ("cp_level_features_res", 240),
-             "K3": ("cp_level_grads", 198), "K4": ("cp_level_grads_res", 274)}
-    return [
+             "K4": ("cp_level_grads_res", 274)}
+    report = [
         dict(name=names[k][0], route="cuda",
              source="nerfacc_tpu_torch/csrc/cp_encoder.cu",
              replaces=f"nerfacc_tpu/ops/cp_encoder.py:{names[k][1]}",
              max_abs_err=acc[k][2], ms=acc[k][0], plain_ms=acc[k][1],
              library_ms=None, **_sum_bounds(bounds[k]))
-        for k in ("K2", "K3", "K4")
+        for k in ("K2", "K4")
     ]
+    # K3: times of the two levels on random points, summed (one wrapper
+    # call; replayed from a CUDA graph); each level and the ray-ordered
+    # points beside them
+    report.insert(1, dict(
+        name="cp_level_grads", route="cuda",
+        source="nerfacc_tpu_torch/csrc/cp_encoder.cu",
+        replaces="nerfacc_tpu/ops/cp_encoder.py:198",
+        max_abs_err=max(max(v["max_abs_err"],
+                            v["on_ray_ordered_points"]["max_abs_err"])
+                        for v in k3.values()),
+        **{key: sum(v[key] for v in k3.values())
+           for key in ("ms", "graph_ms", "first_kernel_ms",
+                       "first_kernel_graph_ms", "plain_ms")},
+        library_ms=None, **_sum_bounds([v for v in k3.values()]),
+        by_level=k3,
+    ))
+    return report
+
+
+def check_k3(dev, xu_by_order, tables, cot) -> dict:
+    """K3 at one level against its twin and against the first kernel (the
+    global-atomic one, launched through the C entry with slice width 0),
+    on uniform random points and on points laid along rays; timed as one
+    wrapper call (``ms``, as every kernel) and as twenty calls replayed
+    from a CUDA graph (``graph_ms``, the card alone), the first kernel the
+    same two ways in the same process."""
+    from nerfacc_tpu_torch import _build
+    from nerfacc_tpu_torch.ops import (
+        cp_level_grads,
+        cp_level_grads_plain,
+        cp_level_grads_slice_width,
+        cp_level_grads_staged,
+    )
+    from nerfacc_tpu_torch.ops.cp_encoder import _zero_grads
+
+    g, r = tables[0].shape
+    B = cot.shape[0]
+    width = cp_level_grads_slice_width(g, r, B)
+    staged = cp_level_grads_staged(g, width)
+    if not width:
+        route = "global atomics"
+    elif staged:
+        route = (f"slices of {width} features, tables and partial gradients "
+                 "in shared memory")
+    else:
+        route = (f"slices of {width} features, partial gradients in shared "
+                 "memory, tables through L1 / L2")
+    # reads xu, the three tables and g, writes three (G, R) f32; ~21 flop
+    # per cotangent (three axes x (two taps, two products) and roundings)
+    b = bound(4 * (3 * B + 6 * g * r + B * r), 21 * B * r)
+    rows = {}
+    for label, x in xu_by_order.items():
+        def first():
+            grads, ptrs = _zero_grads(g, r, dev)
+            _build.launch("cp_level_grads", "nerfacc_cp_level_grads", dev,
+                          x.data_ptr(), *(t.data_ptr() for t in tables),
+                          cot.data_ptr(), *ptrs, B, g, r, 0, 0)
+            return grads
+
+        got = cp_level_grads(x, *tables, cot)
+        want = cp_level_grads_plain(x, *tables, cot)
+        got_first = first()
+        torch.cuda.synchronize()
+        shape = f"B={B} G={g} R={r} {label} points"
+        err, scale = _grads_err(f"K3 {shape}", got, want)
+        ferr, _ = _grads_err(f"K3 first kernel {shape}", got_first, want)
+        del got, got_first
+        ms = median_ms(lambda: cp_level_grads(x, *tables, cot))
+        fms = median_ms(first)
+        gms = graph_ms(lambda: cp_level_grads(x, *tables, cot))
+        fgms = graph_ms(first)
+        pms = (median_ms(lambda: cp_level_grads_plain(x, *tables, cot), 3)
+               if label == "random" else None)
+        del want
+        print(f"K3 cp_level_grads {shape}: kernel {ms:.4f} ms (first "
+              f"kernel {fms:.4f} ms), replayed from a CUDA graph {gms:.4f} "
+              f"ms per call (first kernel {fgms:.4f} ms, {fgms / gms:.2f}x)"
+              + (f"  plain {pms:.4f} ms" if pms is not None else "")
+              + f"  bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+              f"{b['bound_ms'] / gms:.0%} of the graph time)  max abs err "
+              f"{err:.3e} = {err / scale:.2e} x max|dT| {scale:.3e} (first "
+              f"kernel {ferr / scale:.2e})  route: {route}")
+        rows[label] = dict(ms=ms, graph_ms=gms, first_kernel_ms=fms,
+                           first_kernel_graph_ms=fgms, plain_ms=pms,
+                           max_abs_err=err, route=route)
+    torch.cuda.empty_cache()
+    return dict(rows["random"], **b, on_ray_ordered_points=rows["ray-ordered"])
 
 
 def check_hash_kernels(dev) -> list:
@@ -723,14 +826,14 @@ def check_hash_kernels(dev) -> list:
     return report
 
 
-def ray_ordered_points(dev) -> torch.Tensor:
-    """NGP_FIELD_BUDGET points in the order the NGP step feeds its
-    encoder: the rays of bench.py's stream in batch order, on each ray 24
-    consecutive samples front to back, a march step (5e-3) apart from a
-    random start, mapped into the unit cube of the scene's box and
-    clipped. (The step's own samples have gaps where the grid is empty.)"""
+def ray_ordered_points(dev, per_ray=NGP_FIELD_BUDGET // TRAIN_RAYS):
+    """TRAIN_RAYS x per_ray points (24: NGP_FIELD_BUDGET) in the order the
+    training steps feed their fields: the rays of bench.py's stream in
+    batch order, on each ray ``per_ray`` consecutive samples front to
+    back, a march step (5e-3) apart from a random start, mapped into the
+    unit cube of the scene's box and clipped. (The step's own samples have
+    gaps where the grid is empty.)"""
     o, d, _ = bench_stream(dev, 1)
-    per_ray = NGP_FIELD_BUDGET // TRAIN_RAYS
     rng = np.random.RandomState(SEED + 3)
     t0 = torch.as_tensor(rng.rand(TRAIN_RAYS).astype(np.float32), device=dev)
     t = t0[:, None] + TRAIN_KW["render_step_size"] * torch.arange(
@@ -1536,6 +1639,162 @@ def phase_level_scatter(dev) -> dict:
     return {"hash_grad_scatter op per level": counts}
 
 
+class InputRecorder:
+    """Stands in for a kernel wrapper in the module that calls it while a
+    path runs: passes every call on, and keeps a copy of the arguments of
+    the first call at each new shape (at most TRAINER_SHAPES_KEPT), so that
+    the kernel can be held against its twin afterwards on the very inputs
+    the path gave it. A wrapper's body adds to the count of the name it is
+    bound to in its module, which is this object while it stands in:
+    ``launches`` reads and writes the wrapper's own count."""
+
+    def __init__(self, module, attr: str):
+        self.module, self.attr = module, attr
+        self.wrapped = getattr(module, attr)
+        self.calls = {}
+
+    @property
+    def launches(self) -> int:
+        return self.wrapped.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapped.launches = n
+
+    def __call__(self, *args, **kw):
+        key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                    for a in args) + tuple(sorted(kw.items()))
+        if key not in self.calls and len(self.calls) < TRAINER_SHAPES_KEPT:
+            self.calls[key] = (tuple(a.detach().clone() if torch.is_tensor(a)
+                                     else a for a in args), dict(kw))
+        return self.wrapped(*args, **kw)
+
+
+def _trainer_kernels():
+    """The trainer's kernels: counter name -> (module, the name the path
+    calls in it, the plain twin, how the two outputs are compared)."""
+    from nerfacc_tpu_torch.ops import cp_encoder as cpe
+    from nerfacc_tpu_torch.ops import march_select as msel
+
+    def k2_err(name, got, want):
+        for a, (u, w) in enumerate(zip(got[1], want[1])):
+            _check_equal(f"{name} residual {a}", u, w)
+        return _check_close(f"{name} features", got[0], want[0], 0.0,
+                            CP_ATOL)
+
+    return {
+        # K1 through the function both CP ops call without a gradient
+        "cp_level_features": (
+            cpe, "_features", cpe.cp_level_features_plain,
+            lambda n, got, want: _check_close(n, got, want, 0.0, CP_ATOL)),
+        "cp_level_features_res": (
+            cpe, "cp_level_features_res_fwd", cpe.cp_level_features_res_plain,
+            k2_err),
+        "cp_level_grads_res": (
+            cpe, "cp_level_grads_res", cpe.cp_level_grads_res_plain,
+            lambda n, got, want: _grads_err(n, got, want)[0]),
+        "fused_select_grouped": (
+            msel, "fused_select_grouped", msel.fused_select_grouped_plain,
+            _check_quad),
+        "fused_reselect": (
+            msel, "fused_reselect", msel.fused_reselect_plain, _check_quad),
+    }
+
+
+def _shape_label(args, kw) -> str:
+    dims = ["x".join(map(str, a.shape)) if torch.is_tensor(a) else str(a)
+            for a in args]
+    return " ".join(dims + [f"{k}={v}" for k, v in kw.items()
+                            if k in ("k_slots", "k2")])
+
+
+def check_trainer_inputs(dev, recorders) -> dict:
+    """Each kernel of the trainer's path against its plain twin, with the
+    tolerances of phase 3, on the inputs the drive gave it (the first call
+    at each shape: the grid update's and the stage-1 passes' K1, the
+    step's K2 / K4, the march's K5 / K6, the evaluation's). K5 and K6 also
+    on random rows at the drive's shapes (rows fuller than the trained
+    scene's, so that every row is decimated). Returns, per kernel, the
+    shapes and their errors."""
+    kernels = _trainer_kernels()
+    rng = np.random.RandomState(SEED + 9)
+    found = {}
+    for name, rec in recorders.items():
+        _, _, plain, compare = kernels[name]
+        rows = []
+        for args, kw in rec.calls.values():
+            label = f"{name} {_shape_label(args, kw)}"
+            err = compare(f"trainer {label}", rec.wrapped(*args, **kw),
+                          plain(*args, **kw))
+            rows.append(dict(shape=_shape_label(args, kw), max_abs_err=err))
+            print(f"trainer inputs: {label}: max_abs_err {err:.3e}")
+            if name == "fused_select_grouped":
+                R, G = args[0].shape
+                x = _select_inputs(dev, rng, R, G, int(args[1].max()))
+            elif name == "fused_reselect":
+                x = _reselect_inputs(dev, rng, *args[0].shape)
+            else:
+                continue
+            err = compare(f"trainer shape, random rows: {label}",
+                          rec.wrapped(*x, **kw), plain(*x, **kw))
+            rows.append(dict(shape=_shape_label(x, kw) + " random rows",
+                             max_abs_err=err))
+            print(f"trainer shape, random rows: {label}: max_abs_err "
+                  f"{err:.3e}")
+        if not rows:
+            raise AssertionError(f"trainer: no input of {name} was kept")
+        found[name] = rows
+    return found
+
+
+def phase_trainer(dev) -> tuple:
+    """``examples/train_ngp_nerf_torch.py``'s ``main`` at the flagship
+    drive's flags with the kernels (``--use_kernel --fused_march``): 1,000
+    steps on the procedural scene, then the held-out PSNR of 3 views,
+    which must reach TRAINER_PSNR_FLOOR. Then each kernel of the run
+    against its twin on the inputs the run gave it. Returns the run's
+    launch counts and those checks."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_ngp_nerf_torch", ROOT / "examples" / "train_ngp_nerf_torch.py")
+    trainer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(trainer)
+    argv = [*trainer.FLAGSHIP, *trainer.KERNELS, "--seed", str(TRAINER_SEED)]
+    recorders = {name: InputRecorder(module, attr) for name, (module, attr, *_)
+                 in _trainer_kernels().items()}
+    for rec in recorders.values():
+        setattr(rec.module, rec.attr, rec)
+    try:
+        out, counts = drive(
+            "the TensoCP trainer (1,000 steps and the evaluation)",
+            lambda: trainer.main(argv),
+            ("cp_level_features", "cp_level_features_res",
+             "cp_level_grads_res", "fused_select_grouped", "fused_reselect"),
+            ("cp_level_grads", "hash_grad_scatter",
+             "hash_grad_scatter_levels", "table_gather"),
+        )
+    finally:
+        for rec in recorders.values():
+            setattr(rec.module, rec.attr, rec.wrapped)
+    print(f"trainer: PSNR {out['psnr']:.4f} per view "
+          f"{[round(p, 4) for p in out['psnrs']]} (floor "
+          f"{TRAINER_PSNR_FLOOR}); training loop {out['loop_s']:.3f} s for "
+          f"{out['steps']} steps, train_time_s {out['train_time_s']:.3f}; "
+          f"{out['samples']} live samples = "
+          f"{out['samples'] / out['loop_s']:.0f} samples/s; "
+          f"field_budget_dropped {out['field_budget_dropped']}; launches K1 "
+          f"{counts['cp_level_features']}, K2 {counts['cp_level_features_res']}"
+          f", K4 {counts['cp_level_grads_res']}, K5 "
+          f"{counts['fused_select_grouped']}, K6 {counts['fused_reselect']}")
+    if not out["psnr"] >= TRAINER_PSNR_FLOOR:
+        raise AssertionError(f"trainer: PSNR {out['psnr']:.4f} below the "
+                             f"floor {TRAINER_PSNR_FLOOR}")
+    if out["field_budget_dropped"]:
+        raise AssertionError("trainer: the field budget dropped samples")
+    return {"trainer": counts}, check_trainer_inputs(dev, recorders)
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -1546,7 +1805,14 @@ def main() -> None:
     paths.update(phase_level_scatter(dev))
     paths.update(phase_ngp(dev))
     paths.update(phase_gather_script(dev))
+    trainer_counts, trainer_inputs = phase_trainer(dev)
+    paths.update(trainer_counts)
     for entry in report:
+        if entry["name"] in trainer_inputs:
+            rows = trainer_inputs[entry["name"]]
+            entry["at_trainer_inputs"] = rows
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       *(r["max_abs_err"] for r in rows))
         by_path = {p: c[entry["name"]] for p, c in paths.items()
                    if c[entry["name"]]}
         entry["launches"] = sum(by_path.values())

@@ -55,8 +55,9 @@ _SIGNATURES = {
     "nerfacc_cp_level_features": (_P,) * 5 + (_I,) * 4 + (_P,),
     # xu, t0, t1, t2, out, u0, u1, u2, B, G, R, slice width, stream
     "nerfacc_cp_level_features_res": (_P,) * 8 + (_I,) * 4 + (_P,),
-    # xu, t0, t1, t2, g, d0, d1, d2, B, G, R, stream
-    "nerfacc_cp_level_grads": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # xu, t0, t1, t2, g, d0, d1, d2, B, G, R, slice width (0: the
+    # global-atomic kernel), staged (the tables in shared memory too), stream
+    "nerfacc_cp_level_grads": (_P,) * 8 + (_I,) * 5 + (_P,),
     # xu, g, u0, u1, u2, d0, d1, d2, B, G, R, slice width (0: the
     # global-atomic kernel), stream
     "nerfacc_cp_level_grads_res": (_P,) * 8 + (_I,) * 4 + (_P,),

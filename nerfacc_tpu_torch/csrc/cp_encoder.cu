@@ -10,7 +10,10 @@
 //                                            for small batches and where a
 //                                            slice of the tables exceeds
 //                                            shared memory)
-//   K3 _cp_bwd (_bwd_kernel)              -> cp_level_grads_kernel
+//   K3 _cp_bwd (_bwd_kernel)              -> cp_level_grads_shared_kernel
+//                                            (cp_level_grads_kernel for
+//                                            small batches and where a
+//                                            slice exceeds shared memory)
 //   K4 _cp_bwd_res (_bwd_res_kernel)      -> cp_level_grads_res_shared_kernel
 //                                            (cp_level_grads_res_kernel where
 //                                            the tables exceed shared memory)
@@ -53,7 +56,7 @@
 // block keep the first kernel, chosen by shape in
 // ops/cp_encoder.py::cp_features_slice_width. The backward, the adds: 2 x
 // 3 x R f32 atomic adds per live sample into (G, R) tables. Sent to device
-// memory (K3, and K4 for tables too large for a block) they
+// memory (K3's and K4's kernels for tables too large for a block) they
 // are resolved in L2 at about 4x the time the bytes would take. K4 sends
 // L2 fewer: a block owns a slice of Rs features of all three gradients as
 // partial tables in shared memory (3 x G x Rs floats, up to 227 KB), adds
@@ -65,11 +68,18 @@
 // kernel is bound by the instructions it executes (a shared-memory f32 add
 // is a compare-and-swap loop here, and plain adds in its place are no
 // faster), so the rest of its design spends few per term: see
-// cp_level_grads_res_shared_kernel. Samples whose bf16(g) is zero (masked
-// slots get a zero gradient) add nothing and are skipped. The layout keeps
-// every access coalesced and every shared-memory add free of bank
-// conflicts: a warp spans 32 consecutive features of one sample, so table
-// rows, residual rows, gradient rows and outputs are contiguous.
+// cp_level_grads_res_shared_kernel. K3 does the same, and where they fit
+// keeps the block's slice of the tables beside the partial gradient tables
+// as bf16 (K1's staging), 3 x G x Rs x (2 + 4) bytes; where that leaves a
+// narrower slice than the partial tables alone would, it reads the table
+// rows through L1 / L2 instead. A lane owns two neighbouring features, so
+// one 8-byte compare-and-swap adds both (see
+// cp_level_grads_shared_kernel). Samples whose g (K4: bf16(g))
+// is zero (masked slots get a zero gradient) add nothing and are skipped.
+// The layout keeps every access coalesced and every shared-memory add of
+// one sample free of bank conflicts: a warp spans consecutive features of
+// one sample (K3: of one to four), so table rows, residual rows, gradient
+// rows and outputs are contiguous.
 //
 // Numerics: arithmetic uses the _rn intrinsics and the library is built
 // with -fmad=false, so nothing is contracted into an FMA that the plain
@@ -100,6 +110,9 @@ constexpr int kForwardMinSamples = 1024;  // per block: a run for every warp
 constexpr int kSharedRows = 32;          // warps per block, a sample each
 constexpr int kSharedMinSamples = 256;   // per block, at least
 constexpr int kSharedBytesMax = 232448;  // 227 KB, the most a block may use
+// K3 with partial tables in shared memory: one block per SM
+constexpr int kGradWarps = 32;
+constexpr int kGradMinSamples = 32 * kGradWarps;  // per block: a run a warp
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -524,6 +537,214 @@ __global__ void __launch_bounds__(kFeatThreads* kSharedRows, 1)
   }
 }
 
+// (seen + w * x, seen + w * y) for the two floats packed in an 8-byte
+// word, x in the low half (the lower feature). w * x is exact in f32
+// (bf16 x bf16, or w == 1), so the fused multiply-add rounds as the add.
+__device__ __forceinline__ unsigned long long add_pair(unsigned long long seen,
+                                                       float w, float x,
+                                                       float y) {
+  const float lo = __fmaf_rn(w, x, __uint_as_float((unsigned int)seen));
+  const float hi =
+      __fmaf_rn(w, y, __uint_as_float((unsigned int)(seen >> 32)));
+  return ((unsigned long long)__float_as_uint(hi) << 32) |
+         __float_as_uint(lo);
+}
+
+// K3's adds: (w[k] * x[k], w[k] * y[k]) into the pair of floats at
+// cell[k] in shared memory, one 8-byte compare-and-swap per pair. As in
+// add_res_terms, the N reads and then the N swaps are started together
+// so that their latencies overlap, and a swap that lost is repeated (two
+// cells may be one: the last node adds its zero weight in place).
+template <int N>
+__device__ __forceinline__ void add_pairs(unsigned long long* const* cell,
+                                          const float* w, const float* x,
+                                          const float* y) {
+  unsigned long long seen[N], got[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    seen[k] = *(volatile unsigned long long*)cell[k];
+  }
+  bool lost = false;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    got[k] = atomicCAS(cell[k], seen[k], add_pair(seen[k], w[k], x[k], y[k]));
+    lost |= got[k] != seen[k];
+  }
+  if (!lost) return;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    while (got[k] != seen[k]) {
+      seen[k] = got[k];
+      got[k] =
+          atomicCAS(cell[k], seen[k], add_pair(seen[k], w[k], x[k], y[k]));
+    }
+  }
+}
+
+// K3 with its partial gradient tables in shared memory, and (kStaged) its
+// slice of the tables too. Block (x, y) owns features [x * 2 kPairs, (x +
+// 1) * 2 kPairs) and samples [y * chunk, (y + 1) * chunk); chunk * R fits
+// 31 bits. It zeroes its partial gradient tables and (kStaged) stages its
+// slice of the three tables as bf16, rounded once (K1's staging: the bits
+// rounding each read gives), both laid out [axis][row][pair] with pair q
+// holding features 2q and 2q + 1 (an 8-byte word of two f32; a 4-byte
+// word of two bf16). A lane owns one pair of features of one sample, so a
+// sample takes kPairs lanes (a warp at 64 features), and a warp's 32 /
+// kPairs groups of lanes walk as many streams of consecutive samples, far
+// apart in the chunk (on other rays where the samples come along rays, so
+// that their swaps seldom meet on one cell). A group takes runs of kPairs
+// samples of its stream: each of its lanes computes the taps of one (row
+// and the two bf16 weights packed into a word per axis) and the group
+// passes them round by shuffle, one sample per step. Per step a lane reads
+// two features of g (8 bytes) and, per tap of each table, one word of the
+// staged slice (kStaged) or its two f32 features from the table through
+// L1 / L2, rounded to bf16 as read (the f32 axis features of its two
+// features, recomputed from the two taps as the first kernel computes
+// them), and adds its six pairs of terms with six 8-byte
+// compare-and-swaps. The time follows the shared-memory wavefronts: a
+// slice of 64 features puts one sample in a warp, 32 two, each a 128-byte
+// row that fills the banks once; 16 features put four samples in a warp,
+// whose rows fall on the banks at random (~1.5x the wavefronts per term).
+// So where the staged tables leave room for 16 features only, a slice of
+// 32 without them is faster though its rows come from L2 (G = 512: 1.13x).
+// At the end each nonzero entry of the partial tables is added to the
+// gradient once.
+template <int kPairs, bool kStaged>
+__global__ void __launch_bounds__(32 * kGradWarps, 1)
+    cp_level_grads_shared_kernel(
+        const float* __restrict__ xu, const float* __restrict__ t0,
+        const float* __restrict__ t1, const float* __restrict__ t2,
+        const float* __restrict__ g, float* __restrict__ d0,
+        float* __restrict__ d1, float* __restrict__ d2, int B, int G, int R,
+        int chunk) {
+  // (a name of its own: K4's dynamic shared array is a float one)
+  extern __shared__ unsigned long long grads_shared[];
+  unsigned long long* partial = grads_shared;
+  constexpr unsigned int kAll = 0xffffffffu;
+  constexpr int kThreads = 32 * kGradWarps;
+  constexpr int kWidth = 2 * kPairs;  // features of the slice
+  const int per_axis = G * kPairs;  // pairs of one axis
+  unsigned int* staged =
+      reinterpret_cast<unsigned int*>(partial + 3 * per_axis);
+  const int r_begin = blockIdx.x * kWidth;
+  const int tid = threadIdx.x;
+  const float* tables[3] = {t0 + r_begin, t1 + r_begin, t2 + r_begin};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    for (int i = tid; i < per_axis; i += kThreads) {
+      partial[a * per_axis + i] = 0ull;
+      if (kStaged) {
+        const int row = i / kPairs;
+        const float* p = tables[a] + row * R + 2 * (i - row * kPairs);
+        const __nv_bfloat162 pair =
+            __floats2bfloat162_rn(__ldg(p), __ldg(p + 1));
+        staged[a * per_axis + i] =
+            *reinterpret_cast<const unsigned int*>(&pair);
+      }
+    }
+  }
+  __syncthreads();
+
+  const long long b_begin = (long long)blockIdx.y * chunk;
+  const int n_chunk = (int)min((long long)chunk, B - b_begin);
+  const float* xu_chunk = xu + b_begin * 3;
+  const float2* g_chunk =
+      reinterpret_cast<const float2*>(g + b_begin * R + r_begin);
+  const int lane = tid & 31;
+  const int sub = lane / kPairs;      // which group, which stream
+  const int q = lane - sub * kPairs;  // which pair of features
+  const int stream_len = (n_chunk + 32 / kPairs - 1) / (32 / kPairs);
+  const int first = sub * stream_len;  // the group's first sample
+  const int n_mine = max(0, min(stream_len, n_chunk - first));
+  for (int run = kPairs * (tid >> 5); run < stream_len;
+       run += kPairs * kGradWarps) {
+    // lane (sub, q) holds the taps of sample first + run + q
+    int my_row0[3];
+    unsigned int my_w[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const Taps t = axis_taps(
+          run + q < n_mine ? xu_chunk[(first + run + q) * 3 + a] : 0.0f, G);
+      my_row0[a] = t.row0;
+      // both weights are bf16 values: w0 in the low half, w1 in the high
+      my_w[a] = (__float_as_uint(t.w0) >> 16) |
+                (__float_as_uint(t.w1) & 0xffff0000u);
+    }
+    for (int step = 0; step < kPairs; ++step) {
+      const int src = sub * kPairs + step;
+      int row0[3];
+      float w0[3], w1[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        row0[a] = __shfl_sync(kAll, my_row0[a], src);
+        const unsigned int w = __shfl_sync(kAll, my_w[a], src);
+        w0[a] = bf16_low(w);
+        w1[a] = bf16_high(w);
+      }
+      if (run + step >= n_mine) continue;
+      const float2 gv = __ldg(g_chunk + (first + run + step) * (R / 2) + q);
+      if (gv.x == 0.0f && gv.y == 0.0f) continue;
+      // the f32 axis features of both features: two taps of bf16(T_a)
+      int at[3];
+      float u[3][2];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        at[a] = (a * G + row0[a]) * kPairs + q;
+        const bool has_row1 = row0[a] + 1 < G;
+        if (kStaged) {
+          const unsigned int lo = staged[at[a]];
+          const unsigned int hi = staged[at[a] + (has_row1 ? kPairs : 0)];
+          u[a][0] = two_taps(w0[a], bf16_low(lo), w1[a], bf16_low(hi));
+          u[a][1] = two_taps(w0[a], bf16_high(lo), w1[a], bf16_high(hi));
+        } else {
+          const float2* p = reinterpret_cast<const float2*>(
+                                tables[a] + row0[a] * R) + q;
+          const float2 lo = __ldg(p);
+          const float2 hi = __ldg(p + (has_row1 ? R / 2 : 0));
+          u[a][0] = two_taps(w0[a], bf16_round(lo.x), w1[a], bf16_round(hi.x));
+          u[a][1] = two_taps(w0[a], bf16_round(lo.y), w1[a], bf16_round(hi.y));
+        }
+      }
+      // d_a = bf16(g * (u_b * u_c)) per feature
+      float d[3][2];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int b = (a + 1) % 3, c = (a + 2) % 3;
+        bf16_round2(__fmul_rn(gv.x, __fmul_rn(u[b][0], u[c][0])),
+                    __fmul_rn(gv.y, __fmul_rn(u[b][1], u[c][1])), d[a][0],
+                    d[a][1]);
+      }
+      unsigned long long* cell[6];
+      float w[6], x[6], y[6];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        cell[2 * a] = partial + at[a];
+        // the last node has no upper neighbour: its w1 is 0, added in place
+        cell[2 * a + 1] = partial + at[a] + (row0[a] + 1 < G ? kPairs : 0);
+        w[2 * a] = w0[a];
+        w[2 * a + 1] = w1[a];
+        x[2 * a] = x[2 * a + 1] = d[a][0];
+        y[2 * a] = y[2 * a + 1] = d[a][1];
+      }
+      add_pairs<6>(cell, w, x, y);
+    }
+  }
+  __syncthreads();
+
+  float* grads[3] = {d0, d1, d2};
+  const float* sums = reinterpret_cast<const float*>(partial);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    for (int i = tid; i < G * kWidth; i += kThreads) {
+      const float sum = sums[a * G * kWidth + i];
+      if (sum == 0.0f) continue;
+      const int row = i / kWidth;
+      atomicAdd(grads[a] + (long long)row * R + r_begin + (i - row * kWidth),
+                sum);
+    }
+  }
+}
+
 inline dim3 sample_grid(int B) {
   return dim3((B + kSampleRows - 1) / kSampleRows);
 }
@@ -646,16 +867,59 @@ extern "C" int nerfacc_cp_level_features_res(
                                stream);
 }
 
-// d0, d1, d2 must be zeroed by the caller: the kernel adds into them
+// d0, d1, d2 must be zeroed by the caller: the kernel adds into them.
+// Rs > 0: blocks keep the partial gradient tables of a slice of Rs
+// features in shared memory (Rs divides R) and, with `staged`, the slice
+// of the tables beside them as bf16 (Rs = 16, 32 or 64; 3 x G x Rs x 6
+// bytes fit a block); without, the tables are read through L1 / L2 (Rs =
+// 32 or 64; 3 x G x Rs x 4 bytes fit). Rs == 0, g off the 8-byte boundary
+// its two-feature loads need, or (not staged) a table off it: every term
+// is added to the gradient in device memory.
 extern "C" int nerfacc_cp_level_grads(const float* xu, const float* t0,
                                       const float* t1, const float* t2,
                                       const float* g, float* d0, float* d1,
-                                      float* d2, int B, int G, int R,
-                                      void* stream) {
+                                      float* d2, int B, int G, int R, int Rs,
+                                      int staged, void* stream) {
   if (B == 0 || R == 0) return 0;
-  cp_level_grads_kernel<<<sample_grid(B), dim3(kFeatThreads, kSampleRows), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      xu, t0, t1, t2, g, d0, d1, d2, B, G, R);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t tables = reinterpret_cast<uintptr_t>(t0) |
+                           reinterpret_cast<uintptr_t>(t1) |
+                           reinterpret_cast<uintptr_t>(t2);
+  if (Rs <= 0 || reinterpret_cast<uintptr_t>(g) % 8 ||
+      (!staged && tables % 8)) {
+    cp_level_grads_kernel<<<sample_grid(B), dim3(kFeatThreads, kSampleRows),
+                            0, s>>>(xu, t0, t1, t2, g, d0, d1, d2, B, G, R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long long bytes = 3LL * G * Rs * (sizeof(float) + (staged ? 2 : 0));
+  if ((Rs != 16 && Rs != 32 && Rs != 64) || R % Rs ||
+      bytes > kSharedBytesMax || (!staged && Rs == 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0, sms = 0;
+  cudaError_t err = nerfacc::current_device_sms(&device, &sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using Kernel = void (*)(const float*, const float*, const float*,
+                          const float*, const float*, float*, float*, float*,
+                          int, int, int, int);
+  // staged at 16, 32, 64 features; the partial tables alone at 32, 64
+  const Kernel kernels[5] = {cp_level_grads_shared_kernel<8, true>,
+                             cp_level_grads_shared_kernel<16, true>,
+                             cp_level_grads_shared_kernel<32, true>,
+                             cp_level_grads_shared_kernel<16, false>,
+                             cp_level_grads_shared_kernel<32, false>};
+  {
+    static SharedAllowance allowance;
+    err = allowance.ask(kernels, device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int chunks = 0;
+  const int chunk =
+      sample_chunks(B, R, R / Rs, sms, kGradMinSamples, &chunks);
+  if (chunk == 0) return static_cast<int>(cudaErrorInvalidValue);
+  kernels[(Rs == 16 ? 0 : (Rs == 32 ? 1 : 2)) + (staged ? 0 : 2)]
+      <<<dim3(R / Rs, chunks), 32 * kGradWarps, static_cast<size_t>(bytes),
+         s>>>(xu, t0, t1, t2, g, d0, d1, d2, B, G, R, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,6 +13,8 @@ from .cp_encoder import (
     cp_level_grads_plain,
     cp_level_grads_res,
     cp_level_grads_res_plain,
+    cp_level_grads_slice_width,
+    cp_level_grads_staged,
 )
 from .hash_gather import (
     hash_encode_lookup,
@@ -43,6 +45,8 @@ __all__ = [
     "cp_level_grads_plain",
     "cp_level_grads_res",
     "cp_level_grads_res_plain",
+    "cp_level_grads_slice_width",
+    "cp_level_grads_staged",
     "expand_compact",
     "fused_reselect",
     "fused_reselect_plain",

@@ -24,8 +24,10 @@ K2 stage a block's slice of the tables in shared memory, rounded to bf16
 once (:func:`cp_features_slice_width` says for which shapes; the others
 read the tables from device memory). K4 keeps a block's partial gradient
 tables in shared memory and adds them to the gradient once per block
-(:func:`cp_grads_slice_width`); K3 adds every term to the gradient in
-device memory.
+(:func:`cp_grads_slice_width`). K3 keeps its partial gradient
+tables in shared memory too, and stages its slice of the tables beside
+them as bf16 where both fit (:func:`cp_level_grads_slice_width`; the
+others add every term to the gradient in device memory).
 
 Two autograd ops wrap them, as the JAX package's ``custom_vjp``\\ s do:
 ``cp_level_features`` (K1 forward, K3 backward) and
@@ -210,17 +212,64 @@ def cp_grads_slice_width(grid_size: int, n_features: int,
     return max(width, 0)
 
 
+# below this many samples K3 adds every term to the gradient in device
+# memory: staging and flushing the tables in every block would cost more
+# than the batch
+GRADS_SHARED_MIN_BATCH = 65536
+
+
+def cp_level_grads_slice_width(grid_size: int, n_features: int, batch: int,
+                               budget: int = SHARED_BYTES_PER_BLOCK) -> int:
+    """How many of the R features one block of K3 takes. The block keeps
+    their partial gradient tables in f32 in shared memory and, where
+    :func:`cp_level_grads_staged` says so, stages their slice of the three
+    tables beside them as bf16: ``3 * G * width * (4 + 2)`` bytes (else
+    ``3 * G * width * 4``, the table rows read through L1 / L2).
+
+    The widest of 64, 32 and 16 that divides R and fits with the staged
+    tables, or, at 64 and 32, with the partial tables alone (a slice of 16
+    puts four samples in a warp, whose rows meet on shared-memory banks:
+    it costs more than a slice of 32 without the staged tables). 0 where
+    none does (R no multiple of 16, G above ~800) and for batches below
+    ``GRADS_SHARED_MIN_BATCH``: the kernel that adds every term to the
+    gradient in device memory then runs.
+    """
+    if batch < GRADS_SHARED_MIN_BATCH:
+        return 0
+    for width in (64, 32, 16):
+        if n_features % width:
+            continue
+        if (cp_level_grads_staged(grid_size, width, budget)
+                or (width >= 32 and 3 * grid_size * width * 4 <= budget)):
+            return width
+    return 0
+
+
+def cp_level_grads_staged(grid_size: int, width: int,
+                          budget: int = SHARED_BYTES_PER_BLOCK) -> bool:
+    """Whether K3 at slice width ``width`` stages the tables in shared
+    memory: wherever they fit beside the partial gradient tables (at one
+    width, staged is the faster layout)."""
+    return 3 * grid_size * width * 6 <= budget
+
+
 def cp_level_grads(xu, t0, t1, t2, g):
     """K3: the three (G, R) f32 table gradients of ``cp_level_features``
-    for the (B, R) f32 cotangent ``g`` (the plain twin for CPU tensors)."""
+    for the (B, R) f32 cotangent ``g`` (the plain twin for CPU tensors).
+
+    Two kernels compute it, chosen by shape alone
+    (:func:`cp_level_grads_slice_width`) and counted under the same
+    ``launches``."""
     if xu.device.type == "cpu":
         return cp_level_grads_plain(xu, t0, t1, t2, g)
     name = "cp_level_grads"
     ptrs, B, G, R, dev = _table_ptrs(name, xu, (t0, t1, t2))
     ptrs.append(_build.cuda_ptr(name, "g", g, torch.float32, (B, R), dev))
     grads, grad_ptrs = _zero_grads(G, R, dev)
+    width = cp_level_grads_slice_width(G, R, B)
     _build.launch(name, "nerfacc_cp_level_grads", dev,
-                  *ptrs, *grad_ptrs, B, G, R)
+                  *ptrs, *grad_ptrs, B, G, R, width,
+                  int(cp_level_grads_staged(G, width)))
     cp_level_grads.launches += 1
     return grads
 

@@ -1,5 +1,6 @@
-"""The training step of the JAX package's ``bench.py`` (train mode), as
-plain functions.
+"""The training step of the JAX package's ``bench.py`` (train mode), and
+the losses of its trainer (``examples/train_ngp_nerf.py``), as plain
+functions.
 
 One step renders a ray batch with ``render_rays(..., aux=pixels,
 return_compact=True)`` on a white background, takes the full-batch MSE
@@ -14,6 +15,23 @@ from __future__ import annotations
 import torch
 
 from .utils import render_rays
+
+
+def huber(x, y, delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber loss of ``x`` against ``y``: ``d^2 / 2`` below
+    ``delta``, linear above (the trainer's photometric loss)."""
+    d = torch.abs(x - y)
+    return torch.where(d < delta, 0.5 * d * d, delta * (d - 0.5 * delta))
+
+
+def hit_ray_loss(colors, pixels, opacities) -> torch.Tensor:
+    """The trainer's loss on a scene with a known background: the per-ray
+    mean of ``huber`` over the channels, averaged over the rays whose
+    opacity is above 0. A ray that hits nothing composites exactly onto
+    the background, so it carries no useful gradient and is left out."""
+    per_ray = huber(colors, pixels).mean(-1)
+    alive = (opacities[:, 0] > 0).to(per_ray.dtype)
+    return (per_ray * alive).sum() / torch.clamp(alive.sum(), min=1.0)
 
 
 def compact_mse(colors, sel, pixels) -> torch.Tensor:

@@ -9,7 +9,8 @@ image through it without gradients. The training step renders with
 ``field_samples_budget`` the field is evaluated on the live slots only.
 
 ``timestamps`` waits for the D-NeRF field and raises
-``NotImplementedError``.
+``NotImplementedError``. ``DynamicRayBucketer`` sizes a trainer's ray
+batches on the host.
 """
 
 from __future__ import annotations
@@ -370,3 +371,45 @@ def render_image(
             )
             outs.append((colors, opacities, depths))
     return tuple(torch.cat([o[j] for o in outs])[:n] for j in range(3))
+
+
+class DynamicRayBucketer:
+    """Dynamic ray-batch sizing on a ladder of batch sizes (a copy of the
+    JAX package's host-side ``nerfacc_tpu.utils.DynamicRayBucketer``).
+
+    The reference resizes ``num_rays`` every step to keep the live samples
+    per batch near a target (``train_ngp_nerf.py:236-241``). Here ray
+    counts snap to a geometric ladder of buckets, and the controller
+    tracks an EMA of live samples per ray to pick the bucket whose
+    expected sample count is closest to the target. Stateful, on the host.
+    """
+
+    def __init__(
+        self,
+        target_samples: int,
+        init_num_rays: int = 4096,
+        min_num_rays: int = 1024,
+        max_num_rays: int = 65536,
+        ema: float = 0.9,
+    ):
+        self.target = target_samples
+        self.ema = ema
+        self.buckets = []
+        b = min_num_rays
+        while b <= max_num_rays:
+            self.buckets.append(b)
+            b *= 2
+        self.num_rays = min(self.buckets, key=lambda x: abs(x - init_num_rays))
+        self._spr = None  # EMA of live samples per ray
+
+    def update(self, n_live_samples: int, num_rays_used: int) -> int:
+        """Feed back a step's live sample count; returns the next batch
+        size (one of the buckets)."""
+        spr = max(n_live_samples, 1) / max(num_rays_used, 1)
+        self._spr = (
+            spr if self._spr is None
+            else self.ema * self._spr + (1 - self.ema) * spr
+        )
+        want = self.target / self._spr
+        self.num_rays = min(self.buckets, key=lambda x: abs(x - want))
+        return self.num_rays

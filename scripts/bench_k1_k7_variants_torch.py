@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""The design choices of two kernels of nerfacc_tpu_torch, measured on one
-NVIDIA GPU: the hash-table gradient's one-launch entry (K7,
-``hash_grad_scatter_levels``) and the CP level forward (K1 / K2).
+"""The design choices of three kernels of nerfacc_tpu_torch, measured on
+one NVIDIA GPU: the hash-table gradient's one-launch entry (K7,
+``hash_grad_scatter_levels``), the CP level forward (K1 / K2) and the CP
+level gradient without residuals (K3, ``cp_level_grads``).
 
-    python3 scripts/bench_k1_k7_variants_torch.py [--sass_dir DIR]
+    python3 scripts/bench_k1_k7_variants_torch.py [--sass_dir DIR] [--parts sass,k3,k7,k1]
 
 It prints, after the card's name and power limit:
 
-1. per kernel of the built library whose name holds ``scatter`` or
-   ``features``: registers are in the build log; here the number of SASS
+1. per kernel of the built library whose name holds ``scatter``,
+   ``features`` or ``grads``: registers are in the build log; here the
+   number of SASS
    instructions and how many of them are atomics, shared-memory loads,
    shuffles, global loads and stores (``cuobjdump -sass``; the listings go
    to ``--sass_dir``, default ``build/sass``);
@@ -22,7 +24,20 @@ It prints, after the card's name and power limit:
    run length;
 3. K1 and K2 at both TensoCP levels for batches from 1,024 to 786,432
    samples: the kernel that reads the tables from device memory (slice
-   width 0) against the one that stages them in shared memory.
+   width 0) against the one that stages them in shared memory;
+4. K3 at both TensoCP levels and 786,432 samples, on uniform random
+   points and on points laid along rays, in its three layouts: the first
+   kernel (global atomics, slice width 0), partial gradient tables and
+   the staged bf16 tables in shared memory (the widest slice they fit:
+   64 features at G=128, 16 at G=512), and partial gradient tables alone
+   with the tables read through L1 / L2 (64; 32), each checked against
+   the plain twin and timed in turns (first, staged, unstaged, unstaged,
+   staged, first) as twenty calls replayed from a CUDA graph, through the
+   C entry with the layout forced; with each layout's shared-memory
+   wavefronts per warp step counted from the same points (the banks its
+   rows fall on) and the bytes of table rows the unstaged layout reads;
+   then the three for batches from 1,024 to 786,432 samples (where the
+   shared-memory layouts start to pay).
 
 No CPU mode.
 """
@@ -53,7 +68,8 @@ SASS_CLASSES = (("atomics", r"\b(ATOM|RED|ATOMS|ATOMG)\b"),
                 ("global loads", r"\bLDG\b"), ("global stores", r"\bSTG\b"))
 
 
-def sass_counts(sass_dir: Path, names=("scatter", "features")) -> None:
+def sass_counts(sass_dir: Path,
+                names=("scatter", "features", "grads")) -> None:
     """SASS instruction counts of the built library's kernels whose name
     holds one of ``names``; the listings go to ``sass_dir``."""
     from nerfacc_tpu_torch import _build
@@ -188,16 +204,186 @@ def features_variants(dev) -> None:
             print(f"K1/K2 G={G} R={R} B={B}: " + "  ".join(cells))
 
 
+def grads_layouts(G: int, R: int) -> dict:
+    """K3's layouts at one level: ``{label: (slice width, staged)}``, each
+    at the widest slice it fits (``cp_level_grads_slice_width``'s rule
+    per layout)."""
+    from nerfacc_tpu_torch.ops.cp_encoder import SHARED_BYTES_PER_BLOCK
+
+    def widest(widths, per_feature):
+        return next((w for w in widths if R % w == 0
+                     and 3 * G * w * per_feature <= SHARED_BYTES_PER_BLOCK), 0)
+
+    return {"first": (0, False), "staged": (widest((64, 32, 16), 6), True),
+            "unstaged": (widest((64, 32), 4), False)}
+
+
+def _chunk(B: int, slices: int, sms: int, min_samples: int = 1024) -> int:
+    """The K3 kernels' samples per block (``sample_chunks`` in
+    ``csrc/cp_encoder.cu``)."""
+    n = min(max(sms // slices, 1), -(-B // min_samples))
+    return -(-(-(-B // n)) // 32) * 32
+
+
+def _wavefronts(words: torch.Tensor) -> torch.Tensor:
+    """Per row of 4-byte word addresses one warp touches: the wavefronts
+    shared memory takes, the most distinct words that fall on one of the
+    32 banks."""
+    words, _ = torch.sort(words, dim=1)
+    fresh = torch.ones_like(words, dtype=torch.bool)
+    fresh[:, 1:] = words[:, 1:] != words[:, :-1]
+    per_bank = torch.zeros((words.shape[0], 32), dtype=torch.int64,
+                           device=words.device)
+    per_bank.scatter_add_(1, words % 32, fresh.long())
+    return per_bank.max(dim=1).values.double()
+
+
+def smem_wavefronts(x: torch.Tensor, G: int, pairs: int, chunk: int):
+    """K3's shared-memory wavefronts per warp step (64 sample-features) in
+    the first chunk of ``x``, for a slice of ``2 * pairs`` features: a
+    step holds one sample of each of the warp's ``32 // pairs`` streams,
+    and per axis and tap each of its lanes reads the staged table's 4-byte
+    pair of bf16 (the staged layout) and reads and swaps the partial
+    table's 8-byte pair of f32 (both layouts). Returns (staged reads,
+    partial reads + swaps), summed over the six taps, averaged over the
+    steps."""
+    per = 32 // pairs
+    n = min(chunk, x.shape[0]) // per * per
+    row0 = torch.clamp(torch.floor(x[:n] * (G - 1)), 0, G - 1).long()
+    # (steps, samples of a step, axes): stream s holds samples s * n / per...
+    rows = row0.reshape(per, n // per, 3).permute(1, 0, 2)
+    q = torch.arange(pairs, device=x.device)
+    staged = partial = 0.0
+    for a in range(3):
+        for tap in (0, 1):
+            row = rows[..., a] + tap
+            row = torch.where(row < G, row, row - 1)  # the last node's own
+            pair = ((a * G + row)[..., None] * pairs + q).reshape(-1, 32)
+            staged = staged + _wavefronts(pair)
+            partial = partial + 2 * _wavefronts(
+                torch.cat([2 * pair, 2 * pair + 1], dim=1))
+    return float(staged.mean()), float(partial.mean())
+
+
+def _grads_call(dev, x, tables, g, width, staged):
+    """A callable: zero three (G, R) gradients and launch K3's C entry
+    into them at slice width ``width`` (0: the first kernel), with or
+    without the tables staged in shared memory."""
+    from nerfacc_tpu_torch import _build
+    from nerfacc_tpu_torch.ops.cp_encoder import _zero_grads
+
+    G, R = tables[0].shape
+    B = x.shape[0]
+    ptrs = (x.data_ptr(), *(t.data_ptr() for t in tables), g.data_ptr())
+
+    def run():
+        grads, grad_ptrs = _zero_grads(G, R, dev)
+        _build.launch("cp_level_grads", "nerfacc_cp_level_grads", dev,
+                      *ptrs, *grad_ptrs, B, G, R, width, int(staged))
+        return grads
+
+    return run
+
+
+def grads_variants(dev) -> None:
+    from nerfacc_tpu_torch.ops import (
+        cp_level_grads_plain,
+        cp_level_grads_slice_width,
+        cp_level_grads_staged,
+    )
+
+    rng = np.random.RandomState(cs.SEED)
+    B = cs.B_SAMPLES
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    orders = {
+        "random": torch.as_tensor(rng.rand(B, 3).astype(np.float32),
+                                  device=dev),
+        "ray-ordered": cs.ray_ordered_points(dev, B // cs.TRAIN_RAYS),
+    }
+    for G, R in ((128, 64), (512, 128)):
+        tables = [torch.as_tensor(rng.randn(G, R).astype(np.float32) * 0.2,
+                                  device=dev) for _ in range(3)]
+        g = torch.as_tensor(rng.randn(B, R).astype(np.float32), device=dev)
+        layouts = grads_layouts(G, R)
+        width = cp_level_grads_slice_width(G, R, B)
+        package = ("staged" if cp_level_grads_staged(G, width)
+                   else "unstaged")
+        b = cs.bound(4 * (3 * B + 6 * G * R + B * R), 21 * B * R)
+        for label, x in orders.items():
+            want = cp_level_grads_plain(x, *tables, g)
+            scale = max(float(w.abs().max()) for w in want)
+            runs = {k: _grads_call(dev, x, tables, g, *v)
+                    for k, v in layouts.items()}
+            errs = {}
+            for name, run in runs.items():
+                got = run()
+                torch.cuda.synchronize()
+                errs[name] = max(float((d - w).abs().max())
+                                 for d, w in zip(got, want)) / scale
+                if errs[name] > cs.CP_GRAD_REL:
+                    raise AssertionError(f"K3 {name} G={G} R={R} {label}: "
+                                         f"error {errs[name]:.2e} x max|dT|")
+            del want, got
+            order = ("first", "staged", "unstaged", "unstaged", "staged",
+                     "first")
+            turns = [cs.graph_ms(runs[k]) for k in order]
+            best = {k: min(t for o, t in zip(order, turns) if o == k)
+                    for k in runs}
+            counts = []
+            for k in ("staged", "unstaged"):
+                w = layouts[k][0]
+                st, pa = smem_wavefronts(x, G, w // 2, _chunk(B, R // w, sms))
+                if k == "unstaged":
+                    st = 0.0  # its tables are read from L1 / L2
+                counts.append(f"{k} {w} features: {st:.2f} staged + "
+                              f"{pa:.2f} partial = {st + pa:.2f}")
+            # the unstaged layout reads two taps x three axes of its
+            # slice's features per sample and slice, 4 bytes each: R per
+            # sample and tap row
+            row_bytes = B * 6 * R * 4
+            print(f"K3 G={G} R={R} B={B} {label} points (package: {package}"
+                  f" at {width} features): in turns "
+                  + " / ".join(f"{o} {t:.4f}" for o, t in zip(order, turns))
+                  + " ms; first / staged "
+                  f"{best['first'] / best['staged']:.2f}x, staged / "
+                  f"unstaged {best['staged'] / best['unstaged']:.2f}x; bound "
+                  f"{b['bound_ms']:.4f} ms = "
+                  + ", ".join(f"{b['bound_ms'] / best[k]:.0%} of {k}"
+                              for k in runs)
+                  + "; shared-memory wavefronts per warp step (64 "
+                  "sample-features): " + "; ".join(counts)
+                  + f"; unstaged reads {row_bytes / 1e9:.3f} GB of table "
+                  "rows; error x max|dT|: "
+                  + ", ".join(f"{k} {e:.2e}" for k, e in errs.items()))
+        for n in BATCHES:
+            xs = orders["random"][:n].contiguous()
+            gs = g[:n].contiguous()
+            # each layout at any batch (the package chooses by batch)
+            cells = [f"{k} {cs.graph_ms(_grads_call(dev, xs, tables, gs, *v)):.4f}"
+                     for k, v in layouts.items()]
+            print(f"K3 G={G} R={R} B={n}: " + "  ".join(cells) + " ms")
+        del tables, g
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass_dir", type=Path,
                     default=ROOT / "build" / "sass")
+    ap.add_argument("--parts", default="sass,k3,k7,k1",
+                    help="comma-separated parts to run (sass, k3, k7, k1)")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     dev = cs.phase_device()
     cs.phase_build()
-    sass_counts(args.sass_dir)
-    scatter_variants(dev)
-    features_variants(dev)
+    if "sass" in parts:
+        sass_counts(args.sass_dir)
+    if "k3" in parts:
+        grads_variants(dev)
+    if "k7" in parts:
+        scatter_variants(dev)
+    if "k1" in parts:
+        features_variants(dev)
     print(f"nvidia-smi: {cs.smi_line()}")
 
 

@@ -39,6 +39,8 @@ from nerfacc_tpu_torch.ops import (
     cp_level_grads_plain,
     cp_level_grads_res,
     cp_level_grads_res_plain,
+    cp_level_grads_slice_width,
+    cp_level_grads_staged,
     fused_reselect,
     fused_reselect_plain,
     fused_select_grouped,
@@ -170,21 +172,50 @@ def _assert_grads_close(got, want):
         assert float((a - b).abs().max()) <= GRAD_REL * scale
 
 
+def _ray_ordered_xu(B, rng, step=5e-3 / 3.0, per_ray=48):
+    """B points in [0, 1]^3 laid along rays, ``per_ray`` consecutive
+    samples ``step`` apart on each (the order the training step feeds its
+    samples), clipped into the cube."""
+    n_rays = -(-B // per_ray)
+    o = rng.rand(n_rays, 3)
+    d = rng.randn(n_rays, 3)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = step * np.arange(per_ray)
+    x = o[:, None, :] + t[None, :, None] * d[:, None, :]
+    return np.clip(x.reshape(-1, 3)[:B], 0.0, 1.0).astype(np.float32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,R,B,zero_g", [
-    (33, 8, 3001, False),
-    (512, 128, 3001, False),   # four slices of 32 features
-    (128, 64, 3001, False),    # one slice, all 64 features
-    (33, 48, 3001, False),     # one slice, a warp's second pass half idle
-    (512, 48, 70001, False),   # slices of 32 and 16 features, many chunks
-    (1024, 128, 3001, False),  # tables beyond shared memory: global atomics
-    (128, 64, 0, False),
-    (128, 64, 3001, True),     # an all-zero cotangent adds nothing
+@pytest.mark.parametrize("points", ["random", "ray-ordered"])
+@pytest.mark.parametrize("G,R,B,zero_g,k3_width", [
+    (33, 8, 3001, False, 0),
+    (512, 128, 3001, False, 0),   # K4: four slices of 32 features
+    (128, 64, 3001, False, 0),    # K4: one slice, all 64 features
+    (33, 48, 3001, False, 0),     # K4: one slice, a warp's second pass half idle
+    (512, 48, 70001, False, 16),  # K4: slices of 32 and 16 features, many chunks
+    (1024, 128, 3001, False, 0),  # tables beyond shared memory: global atomics
+    (128, 64, 0, False, 0),
+    (128, 64, 3001, True, 0),     # an all-zero cotangent adds nothing
+    # K3 with its partial tables and the staged tables in shared memory
+    (128, 64, 70001, False, 64),    # the coarse level whole, a warp a sample
+    (128, 48, 70001, False, 16),    # R no multiple of 32: four samples a step
+    (256, 96, 70001, False, 32),    # three slices, two samples per step
+    # K3 with its partial tables alone, the tables through L1 / L2
+    (512, 128, 70001, False, 32),   # four slices, two samples per step
+    (256, 64, 70001, False, 64),    # one slice, a warp a sample
+    (128, 64, 70001, True, 64),     # an all-zero cotangent adds nothing
+    (128, 64, 65535, False, 0),     # a batch below K3's threshold
+    (1024, 128, 70001, False, 0),   # tables beyond shared memory
 ])
-def test_cp_training_kernels_match_plain(cuda_device, G, R, B, zero_g):
-    # K2, K3 and K4 at a ragged B with samples at u == 0 and u == G - 1
+def test_cp_training_kernels_match_plain(cuda_device, G, R, B, zero_g,
+                                         k3_width, points):
+    # K2, K3 and K4 at a ragged B with samples at u == 0 and u == G - 1,
+    # on uniform random points and on points laid along rays
     rng = np.random.RandomState(6)
-    xu = rng.rand(B, 3).astype(np.float32)
+    if points == "random":
+        xu = rng.rand(B, 3).astype(np.float32)
+    else:
+        xu = _ray_ordered_xu(B, rng)
     xu[:10] = 1.0
     xu[10:20] = 0.0
     tables = [(rng.randn(G, R) * 0.2).astype(np.float32) for _ in range(3)]
@@ -193,7 +224,12 @@ def test_cp_training_kernels_match_plain(cuda_device, G, R, B, zero_g):
                          for a in (xu, *tables, g))
     counters = (cp_level_features_res, cp_level_grads, cp_level_grads_res)
     before = [fn.launches for fn in counters]
-    # which of K4's two kernels this shape takes
+    # which of K3's and K4's kernels this shape takes
+    assert cp_level_grads_slice_width(G, R, B) == k3_width
+    if k3_width:
+        # the cases' staged slices hold 8,192 nodes x features (144 KB with
+        # the partial tables), the unstaged ones 16,384 (192 KB alone)
+        assert cp_level_grads_staged(G, k3_width) == (G * k3_width <= 8192)
     assert (cp_grads_slice_width(G, R) == 0) == (G == 1024)
 
     feats, us = cp_level_features_res_fwd(xu, t0, t1, t2)
@@ -210,8 +246,24 @@ def test_cp_training_kernels_match_plain(cuda_device, G, R, B, zero_g):
         for d in (*got3, *got4):
             assert d.shape == (G, R) and not bool(d.any())
         return
-    _assert_grads_close(got3, cp_level_grads_plain(xu, t0, t1, t2, g))
+    want3 = cp_level_grads_plain(xu, t0, t1, t2, g)
+    _assert_grads_close(got3, want3)
     _assert_grads_close(got4, cp_level_grads_res_plain(xu, g, *us, G))
+    if k3_width:
+        # tables 4 bytes off a 16-byte boundary (staged: the same kernel,
+        # it stages them word by word; unstaged: the global-atomic kernel,
+        # by pointer, as it reads two features at a time), then g too (the
+        # global-atomic kernel, by pointer)
+        store = torch.empty(3 * G * R + B * R + 1, device=cuda_device)
+        views = []
+        for i, t in enumerate((t0, t1, t2, g)):
+            n = t.numel()
+            v = store[1 + i * G * R:1 + i * G * R + n].view(t.shape)
+            v.copy_(t)
+            views.append(v)
+        assert views[0].data_ptr() % 16 == 4 and views[3].data_ptr() % 8 == 4
+        _assert_grads_close(cp_level_grads(xu, *views[:3], g), want3)
+        _assert_grads_close(cp_level_grads(xu, *views), want3)
 
 
 @pytest.mark.cuda

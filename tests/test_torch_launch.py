@@ -1,6 +1,6 @@
 """The launch path of the port's kernel wrappers and what surrounds the
-two kernels shaped for the card, as far as a machine without a GPU can
-run them: the choice of K1's and K4's slices of features, ``_build.launch`` against
+kernels shaped for the card, as far as a machine without a GPU can run
+them: the choice of K1's, K3's and K4's slices of features, ``_build.launch`` against
 a stand-in for the library and the CUDA runtime, ``_zero_grads``' one
 allocation, and ``table_gather`` on CPU tensors (its plain twin).
 """
@@ -13,6 +13,8 @@ from nerfacc_tpu_torch import _build
 from nerfacc_tpu_torch.ops import (
     cp_features_slice_width,
     cp_grads_slice_width,
+    cp_level_grads_slice_width,
+    cp_level_grads_staged,
     table_gather,
     table_gather_plain,
 )
@@ -92,6 +94,54 @@ def test_cp_features_slice_width_follows_batch_and_budget():
     assert cp_features_slice_width(512, 128, 131072, budget=100 * 1024) == 32
     assert cp_features_slice_width(512, 128, 131072, budget=48 * 1024) == 0
     assert cp_features_slice_width(128, 64, 131072, budget=48 * 1024) == 64
+
+
+@pytest.mark.parametrize("G,R,B,want", [
+    (128, 64, 786432, 64),   # the coarse flagship level whole: 144 KB
+    (512, 128, 786432, 32),  # the fine one: four slices of 32, unstaged
+    (256, 96, 70001, 32),    # 32 divides 96, 64 does not: staged
+    (256, 64, 70001, 64),    # 64 unstaged is wider than 32 staged
+    (128, 48, 70001, 16),    # R no multiple of 32
+    (605, 64, 65536, 32),    # the largest G whose 32 features fit unstaged
+    (606, 64, 65536, 16),    # then 16 staged
+    (807, 16, 65536, 16),    # the largest G whose 16 features fit
+    (808, 16, 65536, 0),
+    (1024, 128, 786432, 0),  # tables beyond a block: global atomics
+    (128, 40, 786432, 0),    # R no multiple of 16
+    (128, 64, 65535, 0),     # a batch below the threshold
+])
+def test_cp_level_grads_slice_width(G, R, B, want):
+    width = cp_level_grads_slice_width(G, R, B)
+    assert width == want
+    assert width in (0, 16, 32, 64)
+
+    def fits(w):
+        # f32 partial gradients of the slice, and the bf16 tables beside
+        # them (any width) or not (32 and 64 only)
+        return (3 * G * w * 6 <= SHARED_BYTES
+                or (w >= 32 and 3 * G * w * 4 <= SHARED_BYTES))
+
+    if width:
+        assert R % width == 0 and fits(width)
+        # staged wherever the tables fit beside the partial tables
+        assert cp_level_grads_staged(G, width) == (
+            3 * G * width * 6 <= SHARED_BYTES)
+        # nothing wider that divides R would fit
+        for wider in (32, 64):
+            if wider > width and R % wider == 0:
+                assert not fits(wider)
+
+
+def test_cp_level_grads_slice_width_follows_batch_and_budget():
+    floor = cp_encoder.GRADS_SHARED_MIN_BATCH
+    assert cp_level_grads_slice_width(128, 64, 1) == 0
+    assert cp_level_grads_slice_width(128, 64, floor - 1) == 0
+    assert cp_level_grads_slice_width(128, 64, floor) == 64
+    # 64 features fit unstaged (96 KB), not staged (144 KB)
+    assert cp_level_grads_slice_width(128, 64, floor, budget=100 * 1024) == 64
+    assert not cp_level_grads_staged(128, 64, budget=100 * 1024)
+    assert cp_level_grads_slice_width(128, 64, floor, budget=90 * 1024) == 32
+    assert cp_level_grads_slice_width(512, 128, floor, budget=48 * 1024) == 0
 
 
 def test_zero_grads_is_one_allocation():
