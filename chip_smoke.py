@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of nerfacc_tpu_torch's render path, TensoCP training step,
-hash-NGP training step and TensoCP trainer on one NVIDIA GPU.
+hash-NGP training step and its four trainers on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -80,6 +80,21 @@ Phases (any failed check raises, and the script exits nonzero):
    each kernel of the run (K1, K2, K4, K5, K6) against its plain twin on
    the inputs the run gave it (the first call at each shape), and K5 / K6
    also on random rows at those shapes.
+10. The NGP trainer, ``train_ngp_nerf_torch.py --model ngp``, at its
+    drive's flags with the kernels (200 steps of 4,096 rays, 96x96 views,
+    16 levels x 2 features x 2^19 entries, the field on half the sample
+    budget): the PSNR of 2 held-out views must reach 20, no live sample
+    may be dropped, K5, K6 and K7's one-launch entry must launch and no
+    other kernel; then K5, K6 and K7 against their twins on the run's
+    inputs (K7 within 1e-5 of the largest |gradient|).
+11. The vanilla NeRF trainer, ``train_mlp_nerf_torch.py``, at its drive's
+    flags (300 steps of 1,024 rays, 64x64 views): PSNR floor 20.
+12. The D-NeRF trainer, ``train_mlp_dnerf_torch.py``, at its drive's
+    flags (2,000 steps of 4,096 rays, 131,072 slots, 96x96 views of the
+    moving scene, the default warp): PSNR floor 26.0. The MLP trainers
+    march exactly in one stage: no kernel may launch.
+Each drive prints its PSNR per view, loop seconds, live samples and
+samples/s, and the launches per kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the kernels' launches (in all and per path), errors and times as
@@ -192,6 +207,12 @@ NGP_LOSS_RTOL, NGP_GRAD_L2 = 1e-5, 1e-3
 # line for this command (its own run reads 33.03; the port's runs read
 # 33.54-34.18 over three seeds with and without kernels, PERF.md section 5).
 TRAINER_SEED, TRAINER_PSNR_FLOOR = 42, 32.5
+# The drives of the NGP, vanilla and D-NeRF trainers (their scripts' NGP /
+# DRIVE flags, seed 42) and their floors: 20 for NGP and vanilla, the JAX
+# package's regression lines (its runs read 23.41 and 22.4), and 26.0 for
+# D-NeRF, 2.5 dB under the JAX package's single 28.5 as 20 sits 2.4 dB
+# under vanilla's 22.4.
+NGP_DRIVE_PSNR_FLOOR, MLP_PSNR_FLOOR, DNERF_PSNR_FLOOR = 20.0, 20.0, 26.0
 # the trainer's kernels are held against their twins on the inputs the
 # drive gave them: the first call at each shape, at most this many shapes
 # per kernel
@@ -1671,9 +1692,10 @@ class InputRecorder:
 
 
 def _trainer_kernels():
-    """The trainer's kernels: counter name -> (module, the name the path
+    """The trainers' kernels: counter name -> (module, the name the path
     calls in it, the plain twin, how the two outputs are compared)."""
     from nerfacc_tpu_torch.ops import cp_encoder as cpe
+    from nerfacc_tpu_torch.ops import hash_gather as hg
     from nerfacc_tpu_torch.ops import march_select as msel
 
     def k2_err(name, got, want):
@@ -1681,6 +1703,18 @@ def _trainer_kernels():
             _check_equal(f"{name} residual {a}", u, w)
         return _check_close(f"{name} features", got[0], want[0], 0.0,
                             CP_ATOL)
+
+    def k7_plain(flat_idx, corner_w, g, d_table):
+        # the kernel adds into the recorded (zero) table; the twin gets its
+        # own
+        return hg.hash_grad_scatter_levels_plain(flat_idx, corner_w, g,
+                                                 torch.zeros_like(d_table))
+
+    def k7_err(name, got, want):
+        scale = float(want.abs().max())
+        err = _check_close(name, got, want, 0.0, HASH_GRAD_REL * scale)
+        print(f"{name}: {err / scale:.2e} x max|dT| {scale:.3e}")
+        return err
 
     return {
         # K1 through the function both CP ops call without a gradient
@@ -1698,6 +1732,9 @@ def _trainer_kernels():
             _check_quad),
         "fused_reselect": (
             msel, "fused_reselect", msel.fused_reselect_plain, _check_quad),
+        # K7 through the name the hash lookup's backward calls
+        "hash_grad_scatter_levels": (
+            hg, "hash_grad_scatter_levels", k7_plain, k7_err),
     }
 
 
@@ -1708,14 +1745,14 @@ def _shape_label(args, kw) -> str:
                             if k in ("k_slots", "k2")])
 
 
-def check_trainer_inputs(dev, recorders) -> dict:
-    """Each kernel of the trainer's path against its plain twin, with the
+def check_trainer_inputs(dev, recorders, path="trainer") -> dict:
+    """Each kernel of a trainer's path against its plain twin, with the
     tolerances of phase 3, on the inputs the drive gave it (the first call
     at each shape: the grid update's and the stage-1 passes' K1, the
-    step's K2 / K4, the march's K5 / K6, the evaluation's). K5 and K6 also
-    on random rows at the drive's shapes (rows fuller than the trained
-    scene's, so that every row is decimated). Returns, per kernel, the
-    shapes and their errors."""
+    step's K2 / K4 / K7, the march's K5 / K6, the evaluation's). K5 and K6
+    also on random rows at the drive's shapes (rows fuller than the
+    trained scene's, so that every row is decimated). Returns, per kernel,
+    the shapes and their errors."""
     kernels = _trainer_kernels()
     rng = np.random.RandomState(SEED + 9)
     found = {}
@@ -1724,10 +1761,11 @@ def check_trainer_inputs(dev, recorders) -> dict:
         rows = []
         for args, kw in rec.calls.values():
             label = f"{name} {_shape_label(args, kw)}"
-            err = compare(f"trainer {label}", rec.wrapped(*args, **kw),
+            err = compare(f"{path} {label}", rec.wrapped(*args, **kw),
                           plain(*args, **kw))
-            rows.append(dict(shape=_shape_label(args, kw), max_abs_err=err))
-            print(f"trainer inputs: {label}: max_abs_err {err:.3e}")
+            rows.append(dict(path=path, shape=_shape_label(args, kw),
+                             max_abs_err=err))
+            print(f"{path} inputs: {label}: max_abs_err {err:.3e}")
             if name == "fused_select_grouped":
                 R, G = args[0].shape
                 x = _select_inputs(dev, rng, R, G, int(args[1].max()))
@@ -1735,64 +1773,109 @@ def check_trainer_inputs(dev, recorders) -> dict:
                 x = _reselect_inputs(dev, rng, *args[0].shape)
             else:
                 continue
-            err = compare(f"trainer shape, random rows: {label}",
+            err = compare(f"{path} shape, random rows: {label}",
                           rec.wrapped(*x, **kw), plain(*x, **kw))
-            rows.append(dict(shape=_shape_label(x, kw) + " random rows",
+            rows.append(dict(path=path,
+                             shape=_shape_label(x, kw) + " random rows",
                              max_abs_err=err))
-            print(f"trainer shape, random rows: {label}: max_abs_err "
+            print(f"{path} shape, random rows: {label}: max_abs_err "
                   f"{err:.3e}")
         if not rows:
-            raise AssertionError(f"trainer: no input of {name} was kept")
+            raise AssertionError(f"{path}: no input of {name} was kept")
         found[name] = rows
     return found
 
 
-def phase_trainer(dev) -> tuple:
-    """``examples/train_ngp_nerf_torch.py``'s ``main`` at the flagship
-    drive's flags with the kernels (``--use_kernel --fused_march``): 1,000
-    steps on the procedural scene, then the held-out PSNR of 3 views,
-    which must reach TRAINER_PSNR_FLOOR. Then each kernel of the run
-    against its twin on the inputs the run gave it. Returns the run's
-    launch counts and those checks."""
+# counter name -> the kernel's tag in the drives' lines
+KERNEL_TAGS = {
+    "cp_level_features": "K1", "cp_level_features_res": "K2",
+    "cp_level_grads": "K3", "cp_level_grads_res": "K4",
+    "fused_select_grouped": "K5", "fused_reselect": "K6",
+    "hash_grad_scatter": "K7 per level", "hash_grad_scatter_levels": "K7",
+    "table_gather": "K8",
+}
+
+
+def load_example(script: str):
+    """``examples/<script>.py`` as a module."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "train_ngp_nerf_torch", ROOT / "examples" / "train_ngp_nerf_torch.py")
-    trainer = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(trainer)
-    argv = [*trainer.FLAGSHIP, *trainer.KERNELS, "--seed", str(TRAINER_SEED)]
-    recorders = {name: InputRecorder(module, attr) for name, (module, attr, *_)
-                 in _trainer_kernels().items()}
+        script, ROOT / "examples" / f"{script}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_drive(dev, path: str, trainer, argv, floor: float,
+              must_launch=()) -> tuple:
+    """A trainer script's ``main`` on ``argv``, with every launch count
+    set to 0 just before and read just after: each kernel of
+    ``must_launch`` must launch and no other; the held-out PSNR must reach
+    ``floor`` and the field budget drop nothing. Then each kernel of
+    ``must_launch`` against its twin on the inputs the run gave it.
+    Returns the run's launch counts and those checks."""
+    kernels = _trainer_kernels()
+    recorders = {name: InputRecorder(*kernels[name][:2])
+                 for name in must_launch}
     for rec in recorders.values():
         setattr(rec.module, rec.attr, rec)
     try:
         out, counts = drive(
-            "the TensoCP trainer (1,000 steps and the evaluation)",
-            lambda: trainer.main(argv),
-            ("cp_level_features", "cp_level_features_res",
-             "cp_level_grads_res", "fused_select_grouped", "fused_reselect"),
-            ("cp_level_grads", "hash_grad_scatter",
-             "hash_grad_scatter_levels", "table_gather"),
-        )
+            path, lambda: trainer.main(list(argv)), must_launch,
+            [k for k in kernel_counters() if k not in must_launch])
     finally:
         for rec in recorders.values():
             setattr(rec.module, rec.attr, rec.wrapped)
-    print(f"trainer: PSNR {out['psnr']:.4f} per view "
-          f"{[round(p, 4) for p in out['psnrs']]} (floor "
-          f"{TRAINER_PSNR_FLOOR}); training loop {out['loop_s']:.3f} s for "
-          f"{out['steps']} steps, train_time_s {out['train_time_s']:.3f}; "
-          f"{out['samples']} live samples = "
-          f"{out['samples'] / out['loop_s']:.0f} samples/s; "
-          f"field_budget_dropped {out['field_budget_dropped']}; launches K1 "
-          f"{counts['cp_level_features']}, K2 {counts['cp_level_features_res']}"
-          f", K4 {counts['cp_level_grads_res']}, K5 "
-          f"{counts['fused_select_grouped']}, K6 {counts['fused_reselect']}")
-    if not out["psnr"] >= TRAINER_PSNR_FLOOR:
-        raise AssertionError(f"trainer: PSNR {out['psnr']:.4f} below the "
-                             f"floor {TRAINER_PSNR_FLOOR}")
+    launched = ", ".join(f"{KERNEL_TAGS[k]} {n}" for k, n in counts.items()
+                         if n) or "none"
+    print(f"{path}: PSNR {out['psnr']:.4f} per view "
+          f"{[round(p, 4) for p in out['psnrs']]} (floor {floor}); "
+          f"training loop {out['loop_s']:.3f} s for {out['steps']} steps, "
+          f"train_time_s {out['train_time_s']:.3f}; {out['samples']} live "
+          f"samples = {out['samples'] / out['loop_s']:.0f} samples/s; "
+          f"field_budget_dropped {out['field_budget_dropped']}; launches "
+          f"{launched}")
+    if not out["psnr"] >= floor:
+        raise AssertionError(f"{path}: PSNR {out['psnr']:.4f} below the "
+                             f"floor {floor}")
     if out["field_budget_dropped"]:
-        raise AssertionError("trainer: the field budget dropped samples")
-    return {"trainer": counts}, check_trainer_inputs(dev, recorders)
+        raise AssertionError(f"{path}: the field budget dropped samples")
+    return counts, check_trainer_inputs(dev, recorders, path)
+
+
+def phase_trainers(dev) -> tuple:
+    """The trainers' drives, each through its script's ``main`` (seed
+    TRAINER_SEED): phase 9, the TensoCP trainer's flagship drive with the
+    kernels (K1, K2, K4, K5, K6); phase 10, the NGP drive with the kernels
+    (K5, K6, K7's one-launch entry); phase 11, the vanilla drive; phase 12,
+    the D-NeRF drive (the MLP trainers march exactly and in one stage, so
+    they launch no kernel). Returns the launch counts per path and the
+    kernels' checks on the drives' inputs, merged per kernel."""
+    seed = ("--seed", str(TRAINER_SEED))
+    drives = (
+        ("trainer", "train_ngp_nerf_torch",
+         lambda m: [*m.FLAGSHIP, *m.KERNELS, *seed], TRAINER_PSNR_FLOOR,
+         ("cp_level_features", "cp_level_features_res",
+          "cp_level_grads_res", "fused_select_grouped", "fused_reselect")),
+        ("NGP trainer", "train_ngp_nerf_torch",
+         lambda m: [*m.NGP, *m.KERNELS, *seed], NGP_DRIVE_PSNR_FLOOR,
+         ("fused_select_grouped", "fused_reselect",
+          "hash_grad_scatter_levels")),
+        ("vanilla trainer", "train_mlp_nerf_torch",
+         lambda m: [*m.DRIVE, *seed], MLP_PSNR_FLOOR, ()),
+        ("D-NeRF trainer", "train_mlp_dnerf_torch",
+         lambda m: [*m.DRIVE, *seed], DNERF_PSNR_FLOOR, ()),
+    )
+    paths, inputs = {}, {}
+    for path, script, flags, floor, kernels in drives:
+        module = load_example(script)
+        paths[path], found = run_drive(dev, path, module, flags(module),
+                                       floor, kernels)
+        for name, rows in found.items():
+            inputs.setdefault(name, []).extend(rows)
+        torch.cuda.empty_cache()
+    return paths, inputs
 
 
 def main() -> None:
@@ -1805,7 +1888,7 @@ def main() -> None:
     paths.update(phase_level_scatter(dev))
     paths.update(phase_ngp(dev))
     paths.update(phase_gather_script(dev))
-    trainer_counts, trainer_inputs = phase_trainer(dev)
+    trainer_counts, trainer_inputs = phase_trainers(dev)
     paths.update(trainer_counts)
     for entry in report:
         if entry["name"] in trainer_inputs:

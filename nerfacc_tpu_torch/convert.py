@@ -1,7 +1,8 @@
 """Carry weights and grid state over from the JAX package's layouts.
 
 The functions take numpy arrays (no JAX import): a flax parameter tree
-as nested dicts, or the occupancy grid's arrays.
+as nested dicts (TensoCP, hash-NGP, vanilla NeRF, D-NeRF), or the
+occupancy grid's arrays.
 """
 
 from __future__ import annotations
@@ -91,6 +92,37 @@ def ngp_from_flax(params_np: Mapping, module) -> None:
         tree["encoder"]["table"], enc.n_levels, enc.n_features)}
     _dense_kernels(tree, module, state)
     _load_state(module, state)
+
+
+def _dense_tree_state(tree: Mapping, prefix: str = "") -> dict:
+    """A flax tree of ``Dense`` layers as the port's state: ``Dense_i``
+    becomes ``layers.i``, other names stay, and each (in, out) ``kernel``
+    is transposed into torch's (out, in) ``weight``."""
+    state = {}
+    for key, value in tree.items():
+        if key == "kernel":
+            state[f"{prefix}weight"] = np.asarray(value).T
+        elif key == "bias":
+            state[f"{prefix}bias"] = value
+        else:
+            name = (f"layers.{key[len('Dense_'):]}"
+                    if key.startswith("Dense_") else key)
+            state.update(_dense_tree_state(value, f"{prefix}{name}."))
+    return state
+
+
+def vanilla_from_flax(params_np: Mapping, module) -> None:
+    """Load a flax ``VanillaNeRFRadianceField`` tree (``mlp/base/Dense_i``,
+    ``mlp/sigma_layer``, ``mlp/bottleneck_layer``, ``mlp/rgb_layer/Dense_i``,
+    each with ``kernel`` and ``bias``; optionally under a top-level
+    ``"params"`` key) into the port's module; any tree of the port's MLP
+    modules loads the same way."""
+    _load_state(module, _dense_tree_state(params_np.get("params", params_np)))
+
+
+# the D-NeRF tree is the warp's ``warp/Dense_i`` beside the vanilla tree
+# under ``nerf``: the same walk
+dnerf_from_flax = vanilla_from_flax
 
 
 def grid_from_arrays(

@@ -1,5 +1,11 @@
-from .procedural import ProceduralScene, render_gt
+from .procedural import (
+    ProceduralDynamicScene,
+    ProceduralScene,
+    render_gt,
+    render_gt_dynamic,
+)
 from .rays import Rays, generate_rays, look_at_poses
 
-__all__ = ["ProceduralScene", "Rays", "generate_rays", "look_at_poses",
-           "render_gt"]
+__all__ = ["ProceduralDynamicScene", "ProceduralScene", "Rays",
+           "generate_rays", "look_at_poses", "render_gt",
+           "render_gt_dynamic"]

@@ -6,8 +6,9 @@ An analytic radiance field (three smooth density blobs and a ground slab
 inside the box ``AABB``, position-dependent colors) is rendered by a
 dense quadrature of 512 samples per ray. Training against those images
 and scoring held-out views in PSNR exercises the same paths as the
-reference's Lego benchmark. The GT images are rendered on the scene's
-device, ``chunk`` rays at a time.
+reference's Lego benchmark. ``ProceduralDynamicScene`` moves the same
+field rigidly over time, one timestamp per view, for the D-NeRF field. The
+GT images are rendered on the scene's device, ``chunk`` rays at a time.
 """
 
 from __future__ import annotations
@@ -55,12 +56,22 @@ def field_rgb(x: torch.Tensor, d: Optional[torch.Tensor] = None
     return torch.clamp(base, 0.0, 1.0)
 
 
-def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor, bkgd: torch.Tensor,
-              n_samples: int = 512) -> torch.Tensor:
-    """Exact volumetric render of the analytic field: ``n_samples``
-    midpoints evenly spaced over each ray's span in the box, the f32
-    exclusive cumsum of sigma * delta for the transmittance, composited
-    onto ``bkgd`` (rays that miss the box render ``bkgd``)."""
+def _shift(t: torch.Tensor) -> torch.Tensor:
+    """Rigid translation of the scene over time, which a D-NeRF warp can
+    represent exactly: (..., 1) times -> (..., 3) offsets."""
+    return torch.cat([
+        0.35 * torch.sin(2.0 * np.pi * t),
+        0.25 * (torch.cos(2.0 * np.pi * t) - 1.0),
+        torch.zeros_like(t),
+    ], dim=-1)
+
+
+def _render(rays_o, rays_d, bkgd, n_samples, shift=None):
+    """Exact volumetric render of the analytic field, optionally shifted by
+    a per-ray (n_rays, 3) offset: ``n_samples`` midpoints evenly spaced over
+    each ray's span in the box, the f32 exclusive cumsum of sigma * delta
+    for the transmittance, composited onto ``bkgd`` (rays that miss the box
+    render ``bkgd``)."""
     t_min, t_max = ray_aabb_intersect(rays_o, rays_d, AABB)
     hit = t_max < 1e9
     t_min = torch.where(hit, t_min, torch.zeros_like(t_min))
@@ -71,6 +82,8 @@ def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor, bkgd: torch.Tensor,
     t0, t1 = ts[:, :-1], ts[:, 1:]
     tm = (t0 + t1) / 2
     x = rays_o[:, None, :] + tm[..., None] * rays_d[:, None, :]
+    if shift is not None:
+        x = x - shift[:, None, :]  # into the canonical frame
     sigma = field_density(x.reshape(-1, 3)).reshape(tm.shape)
     rgb = field_rgb(
         x.reshape(-1, 3),
@@ -82,6 +95,20 @@ def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor, bkgd: torch.Tensor,
     color = (weights[..., None] * rgb).sum(dim=1)
     opacity = weights.sum(dim=1, keepdim=True)
     return color + bkgd * (1.0 - opacity)
+
+
+def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor, bkgd: torch.Tensor,
+              n_samples: int = 512) -> torch.Tensor:
+    """Exact render of the analytic field (see ``_render``)."""
+    return _render(rays_o, rays_d, bkgd, n_samples)
+
+
+def render_gt_dynamic(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                      bkgd: torch.Tensor, t: torch.Tensor,
+                      n_samples: int = 512) -> torch.Tensor:
+    """Exact render of the analytic field shifted rigidly by ``_shift`` of
+    the per-ray times ``t`` (n_rays, 1)."""
+    return _render(rays_o, rays_d, bkgd, n_samples, shift=_shift(t))
 
 
 class ProceduralScene:
@@ -127,9 +154,13 @@ class ProceduralScene:
         train_idx = np.setdiff1d(idx, test_idx)
         self.train_poses = poses[torch.as_tensor(train_idx, device=self.device)]
         self.test_poses = poses[torch.as_tensor(test_idx, device=self.device)]
+        self._render_splits()
+        self._rng = np.random.RandomState(seed)
+
+    def _render_splits(self) -> None:
+        """The GT images of the train and test views."""
         self.images = self._render_views(self.train_poses)
         self.test_images = self._render_views(self.test_poses)
-        self._rng = np.random.RandomState(seed)
 
     def _pixel_grid(self):
         y, x = torch.meshgrid(
@@ -137,17 +168,25 @@ class ProceduralScene:
             torch.arange(self.width, device=self.device), indexing="ij")
         return x.reshape(-1), y.reshape(-1)
 
-    def _render_views(self, poses: torch.Tensor) -> torch.Tensor:
-        """(n, h, w, 3) GT images of ``poses``."""
+    def _render_views(self, poses: torch.Tensor,
+                      times: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(n, h, w, 3) GT images of ``poses``, view ``i`` at time
+        ``times[i]`` where ``times`` is given."""
         images = []
-        for pose in poses:
+        for v, pose in enumerate(poses):
             rays = self.rays_for_view(pose)
-            img = torch.cat([
-                render_gt(rays.origins[i:i + self.chunk],
-                          rays.viewdirs[i:i + self.chunk], self.bkgd)
-                for i in range(0, rays.origins.shape[0], self.chunk)
-            ])
-            images.append(img.reshape(self.height, self.width, 3))
+            chunks = []
+            for i in range(0, rays.origins.shape[0], self.chunk):
+                o = rays.origins[i:i + self.chunk]
+                d = rays.viewdirs[i:i + self.chunk]
+                if times is None:
+                    chunks.append(render_gt(o, d, self.bkgd))
+                else:
+                    t = torch.full((o.shape[0], 1), float(times[v]),
+                                   dtype=torch.float32, device=self.device)
+                    chunks.append(render_gt_dynamic(o, d, self.bkgd, t))
+            images.append(torch.cat(chunks).reshape(self.height, self.width,
+                                                    3))
         return torch.stack(images)
 
     def rays_for_view(self, pose: torch.Tensor) -> Rays:
@@ -155,8 +194,9 @@ class ProceduralScene:
         x, y = self._pixel_grid()
         return generate_rays(x, y, pose, self.K)
 
-    def sample_batch(self, num_rays: int):
-        """Random pixels across all training images -> (rays, pixels)."""
+    def _sample(self, num_rays: int):
+        """Random pixels across all training images -> (view indices,
+        rays, pixels)."""
         n, h, w = self.images.shape[:3]
         img_idx = self._rng.randint(0, n, (num_rays,))
         ys = self._rng.randint(0, h, (num_rays,))
@@ -165,4 +205,32 @@ class ProceduralScene:
                            for a in (img_idx, ys, xs))
         pixels = self.images[img_idx, ys, xs]
         rays = generate_rays(xs, ys, self.train_poses[img_idx], self.K)
+        return img_idx, rays, pixels
+
+    def sample_batch(self, num_rays: int):
+        """Random pixels across all training images -> (rays, pixels)."""
+        _, rays, pixels = self._sample(num_rays)
         return rays, pixels
+
+
+class ProceduralDynamicScene(ProceduralScene):
+    """The analytic scene moving rigidly over time (``_shift``), one
+    timestamp per view as in the D-NeRF dataset: ``timestamps`` =
+    ``linspace(0, 1, n_train)`` for the train views (also the times the
+    grid update draws from) and ``test_timestamps`` = ``linspace(0.05,
+    0.95, n_test)``. ``sample_batch`` returns ``(rays, pixels, t)`` with
+    ``t`` (num_rays, 1) each ray's view time."""
+
+    def _render_splits(self) -> None:
+        self.timestamps = torch.linspace(
+            0.0, 1.0, self.train_poses.shape[0], device=self.device)
+        self.test_timestamps = torch.linspace(
+            0.05, 0.95, self.test_poses.shape[0], device=self.device)
+        self.images = self._render_views(self.train_poses, self.timestamps)
+        self.test_images = self._render_views(self.test_poses,
+                                              self.test_timestamps)
+
+    def sample_batch(self, num_rays: int):
+        """Random pixels across all training images -> (rays, pixels, t)."""
+        img_idx, rays, pixels = self._sample(num_rays)
+        return rays, pixels, self.timestamps[img_idx][:, None]

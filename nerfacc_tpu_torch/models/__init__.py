@@ -1,4 +1,6 @@
+from .encoders import SinusoidalEncoder
 from .hash_encoding import HashEncoder, hash_grid_indices
+from .mlp import MLP, DNeRFRadianceField, NerfMLP, VanillaNeRFRadianceField
 from .ngp import (
     NGPRadianceField,
     contract_to_unisphere,
@@ -9,9 +11,14 @@ from .tensorf import CPLevel, TensoCPRadianceField, hat_basis
 
 __all__ = [
     "CPLevel",
+    "DNeRFRadianceField",
     "HashEncoder",
+    "MLP",
     "NGPRadianceField",
+    "NerfMLP",
+    "SinusoidalEncoder",
     "TensoCPRadianceField",
+    "VanillaNeRFRadianceField",
     "contract_to_unisphere",
     "hash_grid_indices",
     "hat_basis",

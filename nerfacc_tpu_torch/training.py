@@ -1,6 +1,6 @@
 """The training step of the JAX package's ``bench.py`` (train mode), and
-the losses of its trainer (``examples/train_ngp_nerf.py``), as plain
-functions.
+the losses and schedules of its trainers (``examples/train_ngp_nerf.py``,
+``train_mlp_nerf.py``, ``train_mlp_dnerf.py``), as plain functions.
 
 One step renders a ray batch with ``render_rays(..., aux=pixels,
 return_compact=True)`` on a white background, takes the full-batch MSE
@@ -32,6 +32,31 @@ def hit_ray_loss(colors, pixels, opacities) -> torch.Tensor:
     per_ray = huber(colors, pixels).mean(-1)
     alive = (opacities[:, 0] > 0).to(per_ray.dtype)
     return (per_ray * alive).sum() / torch.clamp(alive.sum(), min=1.0)
+
+
+def multistep_lr(optimizer, horizon: int, gamma: float = 0.33):
+    """The MLP trainers' schedule: the learning rate times ``gamma`` from
+    steps ``horizon // 2``, ``3 horizon // 4`` and ``9 horizon // 10`` on
+    (optax's ``piecewise_constant_schedule`` with those boundaries, where
+    equal boundaries of a short horizon count once). Step it after each
+    optimizer step."""
+    milestones = sorted({horizon // 2, horizon * 3 // 4, horizon * 9 // 10})
+    return torch.optim.lr_scheduler.MultiStepLR(optimizer, milestones, gamma)
+
+
+def warp_regularizer(field, x, t, mag: float, smooth: float) -> torch.Tensor:
+    """The D-NeRF trainer's warp penalties at points ``x`` (N, 3) and times
+    ``t`` (N, 1): ``mag`` times the mean squared displacement, plus
+    ``smooth`` times the mean squared change of the displacement from ``t``
+    to ``min(t + 0.05, 1)``."""
+    d1 = field.warp_displacement(x, t)
+    loss = torch.zeros((), dtype=d1.dtype, device=d1.device)
+    if mag > 0:
+        loss = loss + mag * torch.mean(d1**2)
+    if smooth > 0:
+        d2 = field.warp_displacement(x, torch.clamp(t + 0.05, 0.0, 1.0))
+        loss = loss + smooth * torch.mean((d2 - d1) ** 2)
+    return loss
 
 
 def compact_mse(colors, sel, pixels) -> torch.Tensor:

@@ -8,9 +8,10 @@ image through it without gradients. The training step renders with
 ``return_compact=True`` and the target pixels as ``aux``; with
 ``field_samples_budget`` the field is evaluated on the live slots only.
 
-``timestamps`` waits for the D-NeRF field and raises
-``NotImplementedError``. ``DynamicRayBucketer`` sizes a trainer's ray
-batches on the host.
+With per-ray ``timestamps`` (n_rays, 1) the field is time-conditioned
+(the D-NeRF field): it is called as ``field(x, t, d)`` and
+``field.query_density(x, t)``, each sample taking its ray's time.
+``DynamicRayBucketer`` sizes a trainer's ray batches on the host.
 """
 
 from __future__ import annotations
@@ -46,20 +47,31 @@ def _dense_positions(rays_o, rays_d, t_starts, t_ends):
     return rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
 
 
-def _dense_field_query(field, x, rays_d=None, density_only=False):
-    """Query a radiance field at dense (R, K, 3) positions."""
+def _query(field, x, t=None, d=None, density_only=False):
+    """``field.query_density(x[, t])`` or ``field(x[, t], d)``: a
+    time-conditioned field takes the per-sample times ``t``."""
+    args = (x,) if t is None else (x, t)
+    return field.query_density(*args) if density_only else field(*args, d)
+
+
+def _dense_field_query(field, x, rays_d=None, timestamps=None,
+                       density_only=False):
+    """Query a radiance field at dense (R, K, 3) positions; with per-ray
+    ``timestamps`` (R, 1) the field takes each ray's time at every slot."""
     R, K = x.shape[:2]
     xf = x.reshape(R * K, 3)
+    t = (None if timestamps is None
+         else torch.repeat_interleave(timestamps, K, dim=0))
     if density_only:
-        return field.query_density(xf).reshape(R, K)
+        return _query(field, xf, t, density_only=True).reshape(R, K)
     d = torch.broadcast_to(rays_d[:, None, :], (R, K, 3)).reshape(R * K, 3)
-    rgbs, sigmas = field(xf, d)
+    rgbs, sigmas = _query(field, xf, t, d)
     return rgbs.reshape(R, K, 3), sigmas.reshape(R, K)
 
 
 def _compact_field_query(
     field, rays_o, rays_d, t_starts, t_ends, masks, m_budget,
-    density_only=False,
+    timestamps=None, density_only=False,
 ):
     """Query the field on the live slots only (gather-bound encoders).
 
@@ -76,10 +88,12 @@ def _compact_field_query(
     ridx = pos // K  # (M,) each compact sample's ray
     dc = rays_d[ridx]
     xc = rays_o[ridx] + tc[:, None] * dc
+    tsc = None if timestamps is None else timestamps[ridx]
     if density_only:
-        vals = field.query_density(xc).reshape(-1, 1).to(torch.float32)
+        vals = _query(field, xc, tsc, density_only=True).reshape(-1, 1).to(
+            torch.float32)
     else:
-        rgbs_c, sigmas_c = field(xc, dc)
+        rgbs_c, sigmas_c = _query(field, xc, tsc, dc)
         vals = torch.cat(
             [rgbs_c.to(torch.float32), sigmas_c.reshape(-1, 1)], dim=1
         )  # (M, 4)
@@ -147,17 +161,17 @@ def render_rays(
     over-budget samples are dropped front to back per ray and counted in
     ``field_budget_dropped``).
 
-    ``aux`` is an optional (n_rays, D) per-ray payload (e.g. the target
-    pixels), gathered with the compacted rays. ``return_compact`` skips the
-    expand-back and returns the compacted outputs with the selection,
-    ``(colors, opacities, depths, n_samples, sel)`` with ``sel =
+    ``timestamps`` (n_rays, 1) are the per-ray times of a time-conditioned
+    field, gathered with the compacted rays like ``aux``, an optional
+    (n_rays, D) per-ray payload (e.g. the target pixels).
+    ``return_compact`` skips the expand-back and returns the compacted
+    outputs with the selection, ``(colors, opacities, depths, n_samples,
+    sel)`` with ``sel =
     {"ray_indices" (int32), "ray_ok", "aux"}`` (plus ``sel["extras"]`` with
     ``return_extras``); without ray compaction the selection is every ray.
     Rays left out render exactly ``render_bkgd``, so a full-batch loss
     follows algebraically (``training.compact_mse``).
     """
-    if timestamps is not None:
-        raise NotImplementedError("time-conditioned fields are not ported yet")
     n_rays = rays_o.shape[0]
     if stratified and key is None:
         raise ValueError("stratified=True requires a torch.Generator `key`.")
@@ -197,6 +211,8 @@ def render_rays(
         rays_o, rays_d = rays_o[ridx], rays_d[ridx]
         t_min, t_max = t_min[ridx], t_max[ridx]
         live_groups = live_g[ridx]
+        if timestamps is not None:
+            timestamps = timestamps[ridx]
         if aux is not None:
             aux = aux.to(torch.float32)[ridx]
         n_rays = H
@@ -229,14 +245,17 @@ def render_rays(
             if field_samples_budget is not None:
                 sigmas, keep1, _ = _compact_field_query(
                     field, rays_o, rays_d, segs.t_starts, segs.t_ends,
-                    segs.masks, field_samples_budget, density_only=True,
+                    segs.masks, field_samples_budget,
+                    timestamps=timestamps, density_only=True,
                 )
                 segs = segs._replace(masks=keep1)
             else:
                 x = _dense_positions(
                     rays_o, rays_d, segs.t_starts, segs.t_ends
                 )
-                sigmas = _dense_field_query(field, x, density_only=True)
+                sigmas = _dense_field_query(
+                    field, x, timestamps=timestamps, density_only=True
+                )
             alphas = 1.0 - torch.exp(-sigmas * segs.deltas)
             vis = render_visibility_dense(
                 alphas, segs.masks,
@@ -252,11 +271,13 @@ def render_rays(
     if field_samples_budget is not None:
         rgbs, sigmas, masks, field_dropped = _compact_field_query(
             field, rays_o, rays_d, t_starts, t_ends, segs.masks,
-            field_samples_budget,
+            field_samples_budget, timestamps=timestamps,
         )
     else:
         x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
-        rgbs, sigmas = _dense_field_query(field, x, rays_d=rays_d)
+        rgbs, sigmas = _dense_field_query(
+            field, x, rays_d=rays_d, timestamps=timestamps
+        )
         masks = segs.masks
         field_dropped = torch.zeros(
             (), dtype=torch.int32, device=masks.device
@@ -350,9 +371,7 @@ def render_image(
         kwargs["visible_samples_budget"] = chunk * eval_visible_samples_per_ray
     # eval renders are exact: live-sample compaction is a train-step budget
     kwargs.pop("field_samples_budget", None)
-    if kwargs.get("timestamps") is not None:
-        raise NotImplementedError("time-conditioned fields are not ported yet")
-    kwargs.pop("timestamps", None)
+    timestamps = kwargs.pop("timestamps", None)
     pad = (-n) % chunk
     if pad:
         rays_o = torch.cat(
@@ -363,11 +382,19 @@ def render_image(
             [rays_d, torch.full((pad, 3), float(_PAD_DIR),
                                 dtype=rays_d.dtype, device=rays_d.device)]
         )
+        if timestamps is not None:
+            timestamps = torch.cat(
+                [timestamps, torch.zeros((pad, 1), dtype=timestamps.dtype,
+                                         device=timestamps.device)]
+            )
     outs = []
     with torch.no_grad():
         for i in range(0, n + pad, chunk):
             colors, opacities, depths, _ = render_rays(
-                field, rays_o[i : i + chunk], rays_d[i : i + chunk], **kwargs
+                field, rays_o[i : i + chunk], rays_d[i : i + chunk],
+                timestamps=(None if timestamps is None
+                            else timestamps[i : i + chunk]),
+                **kwargs,
             )
             outs.append((colors, opacities, depths))
     return tuple(torch.cat([o[j] for o in outs])[:n] for j in range(3))

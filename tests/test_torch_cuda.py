@@ -15,16 +15,25 @@ within 1e-5 of the largest |gradient| (the kernels add in atomic order,
 the plain product in cuBLAS's order); the hash-table scatter, per level
 and all levels in one launch, within 1e-5 of the largest |sum| (atomic
 order against ``index_add_``'s); the table gather bit-equal (indices
-outside the table clamped into it, as the kernel documents).
+outside the table clamped into it, as the kernel documents). The MLP
+fields and the time-conditioned render, card against CPU: f32 GEMMs
+summed in another order (TF32 off), outputs within rtol 1e-5 / atol 1e-5,
+gradients within 1e-3 in L2 (a relu at 0 may flip), render masks
+bit-equal and colours within 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from nerfacc_tpu_torch import _build
+from nerfacc_tpu_torch import _build, render_rays
 from nerfacc_tpu_torch.convert import grid_from_arrays
-from nerfacc_tpu_torch.models import NGPRadianceField, TensoCPRadianceField
+from nerfacc_tpu_torch.models import (
+    DNeRFRadianceField,
+    NGPRadianceField,
+    TensoCPRadianceField,
+    VanillaNeRFRadianceField,
+)
 from nerfacc_tpu_torch.models import hash_grid_indices
 from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
 from nerfacc_tpu_torch.ops import (
@@ -659,3 +668,119 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         fused_select_grouped(live, gsize[:, 0], t_min, k_slots=8,
                              step_size=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16384, 65536])
+def test_hash_scatter_levels_at_the_ngp_drive_shapes(cuda_device, N):
+    # the NGP drive's table gradient: 16 levels x 2^19 entries, the field
+    # pass's 16,384 compacted samples (4,096 rays x 4 visible slots) and
+    # the field budget's 65,536, on points laid along rays
+    L, T = 16, 1 << 19
+    res = _level_resolutions(L, 16, 1.4472692012786865)
+    rng = np.random.RandomState(21)
+    x = _ray_points(N // 16, 16, 22)
+    idx, w = hash_grid_indices(
+        torch.as_tensor(x, device=cuda_device),
+        torch.as_tensor(res, device=cuda_device),
+        torch.as_tensor((res + 1) ** 3 <= T, device=cuda_device), T)
+    g = torch.as_tensor(rng.randn(N, 2 * L).astype(np.float32),
+                        device=cuda_device)
+    before = hash_grad_scatter_levels.launches
+    got = hash_grad_scatter_levels(idx, w, g,
+                                   torch.zeros((L, T, 2), device=cuda_device))
+    want = hash_grad_scatter_levels_plain(
+        idx, w, g, torch.zeros((L, T, 2), device=cuda_device))
+    torch.cuda.synchronize()
+    assert hash_grad_scatter_levels.launches == before + 1
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= GRAD_REL * scale
+
+
+def _mlp_fields(device):
+    vanilla = VanillaNeRFRadianceField(
+        generator=torch.Generator().manual_seed(7), device=device)
+    dnerf = DNeRFRadianceField(generator=torch.Generator().manual_seed(8),
+                               device=device)
+    return vanilla, dnerf
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["vanilla", "dnerf"])
+def test_mlp_fields_on_card_match_cpu(cuda_device, name):
+    # the same weights (one seed) on the card in cuBLAS f32 (TF32 off) and
+    # on the CPU: f32 sums in another order through 8 layers of 256 (one
+    # value in 4,096 moved by 1.5e-6 in the first run): outputs within
+    # rtol 1e-5 / atol 1e-5. A trunk relu whose input sits within that
+    # rounding of 0 can flip and move its sample's share of a gradient
+    # (the D-NeRF trunk's first layer read 2.7e-4 in L2): gradients within
+    # 1e-3 in L2, the bound of the NGP step's card-vs-CPU test. The D-NeRF
+    # warp's output layer is zeroed, so the warped points are the inputs
+    # on both devices: its last bit would otherwise reach the degree-9
+    # encoding x 512 (tests/test_torch_mlp.py)
+    rng = np.random.RandomState(23)
+    x = (rng.rand(4096, 3) * 3.0 - 1.5).astype(np.float32)
+    d = rng.randn(4096, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = rng.rand(4096, 1).astype(np.float32)
+    w = rng.randn(4096, 3).astype(np.float32)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        vanilla, dnerf = _mlp_fields(device)
+        xt, dt, tt, wt = (torch.as_tensor(a, device=device)
+                          for a in (x, d, t, w))
+        if name == "vanilla":
+            field, outs = vanilla, list(vanilla(xt, dt))
+        else:
+            field = dnerf
+            with torch.no_grad():
+                dnerf.warp.layers[-1].weight.zero_()
+                dnerf.warp.layers[-1].bias.zero_()
+            outs = [*dnerf(xt, tt, dt), dnerf.warp_displacement(xt, tt)]
+        sum(torch.sum(o * wt[:, :o.shape[1]]) for o in outs).backward()
+        grads = {n: p.grad.cpu() for n, p in field.named_parameters()}
+        results.append(([o.detach().cpu() for o in outs], grads))
+    (outs_c, g_c), (outs_h, g_h) = results
+    for a, b in zip(outs_c, outs_h):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for k, want in g_h.items():
+        err = float(torch.linalg.norm(g_c[k] - want))
+        assert err <= 1e-3 * float(torch.linalg.norm(want)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["dense", "ray compaction"])
+def test_render_with_timestamps_on_card_matches_cpu(cuda_device, mode):
+    # the D-NeRF field through render_rays with per-ray times: the card
+    # (the fused march where the stride takes it) against the CPU's plain
+    # twins on the same weights: masks bit-equal, colours within 1e-5
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    rng = np.random.RandomState(24)
+    binary = np.zeros((32, 32, 32), bool)
+    binary[4:28, 4:28, 4:28] = rng.rand(24, 24, 24) < 0.6
+    o = rng.randn(256, 3)
+    o = 2.8 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.randn(256, 3) * 0.8
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = rng.rand(256, 1)
+    kw = dict(scene_aabb=aabb, render_step_size=1e-2,
+              max_samples_per_ray=512, samples_budget=256 * 24,
+              return_extras=True, use_pallas=True)
+    if mode == "ray compaction":
+        kw.update(coarse_stride=8, probe_dilation=1, probe_groups=16,
+                  compact_rays_fraction=0.75)
+    results = []
+    for device in (cuda_device, torch.device("cpu")):
+        _, dnerf = _mlp_fields(device)
+        rays = [torch.as_tensor(a.astype(np.float32), device=device)
+                for a in (o, d, t)]
+        with torch.no_grad():
+            c, op, dep, n, ex = render_rays(
+                dnerf, rays[0], rays[1], timestamps=rays[2],
+                grid=grid_from_arrays(aabb, binary, device=device),
+                render_bkgd=torch.ones(3, device=device), **kw)
+        results.append([v.cpu() for v in (c, op, dep, ex["masks"])])
+    (c1, o1, d1, m1), (c2, o2, d2, m2) = results
+    assert torch.equal(m1, m2) and int(m1.sum()) > 500
+    for a, b in ((c1, c2), (o1, o2), (d1, d2)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)

@@ -168,18 +168,6 @@ def test_render_image_matches_jax(scene):
     assert float(out_t[1].max()) > 0.5
 
 
-def test_unported_paths_raise(scene):
-    *_, tfield, tgrid = scene
-    o, d = (torch.as_tensor(a) for a in _camera_rays(8, seed=4))
-    with pytest.raises(NotImplementedError):
-        render_rays(tfield, o, d, grid=tgrid,
-                    **dict(KW, timestamps=torch.zeros(8, 1)))
-    # the training paths are ported: a gradient request renders with a
-    # graph, and return_compact returns the selection
-    *_, sel = render_rays(tfield, o, d, grid=tgrid, return_compact=True, **KW)
-    assert sel["ray_ok"].shape == (6,) and sel["aux"] is None
-
-
 def test_entry_points_default_to_the_card():
     # without a device argument the constructors ask for the CUDA device
     # and PyTorch raises where there is none; the CPU must be asked for
@@ -208,7 +196,9 @@ def test_port_imports_no_jax():
         "import nerfacc_tpu_torch.ops.hash_gather, "
         "nerfacc_tpu_torch.ops.sample_compact, "
         "nerfacc_tpu_torch.ops.table_gather, "
-        "nerfacc_tpu_torch.models.hash_encoding\n"
+        "nerfacc_tpu_torch.models.hash_encoding, "
+        "nerfacc_tpu_torch.models.mlp, nerfacc_tpu_torch.models.encoders, "
+        "nerfacc_tpu_torch.checkpoint\n"
         "sys.path.insert(0, 'scripts')\n"
         "import bench_hash_torch, profile_step_torch, "
         "bench_march_select_torch\n"
