@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of nerfacc_tpu_torch's render path, TensoCP training step,
-hash-NGP training step and its four trainers on one NVIDIA GPU.
+hash-NGP training step and its trainers (seven drives) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -93,6 +93,32 @@ Phases (any failed check raises, and the script exits nonzero):
     flags (2,000 steps of 4,096 rays, 131,072 slots, 96x96 views of the
     moving scene, the default warp): PSNR floor 26.0. The MLP trainers
     march exactly in one stage: no kernel may launch.
+13. The proposal trainer, ``train_proposal_nerf_torch.py``, at its
+    ``DRIVE`` flags with ``--use_kernel`` (2,000 steps of 4,096 rays, 64 +
+    32 samples, 128x128 views, 64 training views, the proposal level (64,
+    32)): PSNR floor 40.0; train seconds, ``train_samples_per_s`` and the
+    launches of K1, K2, K4; then each against its twin on the run's
+    inputs, the proposal level's among them.
+14. The same at ``DRIVE_360`` (the 360 scene, unbounded, 4,000 steps of
+    4,096 rays, 96 + 48 samples, 96x96 views) on the plain paths, as the
+    JAX script runs it: PSNR floor 37.0, no kernel launched; then K1, K2
+    and K4 against their twins on the run's trained tables and on the
+    points one batch gives each level (the proposal level (192, 32) at
+    393,216 coarse midpoints). With ``--use_kernel`` the recipe collapses
+    at seeds 42 and 44, and so it does with the kernels replaced by their
+    plain twins: the kernel path's numerics, not the kernels (ROADMAP.md
+    Queue 3). So the kernel path trains only its first
+    P360_KERNEL_STEPS steps here, with no quality floor: K1, K2 and K4
+    must launch and are held to their twins on the inputs those steps
+    gave them, the (192, 32) level's among them.
+15. The grid trainer's unbounded drive, ``train_ngp_nerf_torch.py`` at
+    ``U360`` with the kernels (2,000 steps of 4,096 rays on the 360 scene,
+    a 256^3 sphere-contracted grid, [0.2, 1e4] at step 1e-2 and cone
+    0.004, the lattice auto-sized to 2,336 points in 146 probe groups):
+    PSNR floor 25.0; K1, K2, K4, K5 and K6 against their twins on the
+    run's inputs (K5 at 4,096 rays x 146 groups x 128 slots, K6 at 128 ->
+    64 and on the evaluation's chunks), then the fused march against the
+    unfused one on the run's grid and rays, masks bit-equal.
 Each drive prints its PSNR per view, loop seconds, live samples and
 samples/s, and the launches per kernel.
 
@@ -213,6 +239,20 @@ TRAINER_SEED, TRAINER_PSNR_FLOOR = 42, 32.5
 # D-NeRF, 2.5 dB under the JAX package's single 28.5 as 20 sits 2.4 dB
 # under vanilla's 22.4.
 NGP_DRIVE_PSNR_FLOOR, MLP_PSNR_FLOOR, DNERF_PSNR_FLOOR = 20.0, 20.0, 26.0
+# The unbounded drives (seed 42) and their floors: the proposal drives
+# 2.5 dB under the JAX package's single runs (42.5 and 39.7), as D-NeRF's
+# floor sits under its 28.5 (the 360 one on the plain paths, as the JAX
+# script runs it); the grid-unbounded drive between the JAX package's
+# collapse basin (12.8-15.8) and its weak seed (28.47; the others 35.52
+# and 35.74).
+PROPOSAL_PSNR_FLOOR, PROPOSAL360_PSNR_FLOOR, U360_PSNR_FLOOR = 40.0, 37.0, 25.0
+# the 360 proposal drive's kernel path: steps trained to hold its kernels
+# to their twins in training (no quality floor: ROADMAP.md Queue 3)
+P360_KERNEL_STEPS = 200
+# the grid-unbounded drive's lattice, auto-sized from [0.2, 1e4] at step
+# 1e-2 and cone 0.004 (2,308 points plus a group of margin, in groups of
+# 16)
+U360_SAMPLES, U360_GROUPS = 2336, 146
 # the trainer's kernels are held against their twins on the inputs the
 # drive gave them: the first call at each shape, at most this many shapes
 # per kernel
@@ -1814,7 +1854,8 @@ def run_drive(dev, path: str, trainer, argv, floor: float,
     ``must_launch`` must launch and no other; the held-out PSNR must reach
     ``floor`` and the field budget drop nothing. Then each kernel of
     ``must_launch`` against its twin on the inputs the run gave it.
-    Returns the run's launch counts and those checks."""
+    Returns the run's launch counts, those checks and the run's
+    ``Trainer``."""
     kernels = _trainer_kernels()
     recorders = {name: InputRecorder(*kernels[name][:2])
                  for name in must_launch}
@@ -1827,21 +1868,124 @@ def run_drive(dev, path: str, trainer, argv, floor: float,
     finally:
         for rec in recorders.values():
             setattr(rec.module, rec.attr, rec.wrapped)
+    t = out.pop("trainer")
     launched = ", ".join(f"{KERNEL_TAGS[k]} {n}" for k, n in counts.items()
                          if n) or "none"
     print(f"{path}: PSNR {out['psnr']:.4f} per view "
           f"{[round(p, 4) for p in out['psnrs']]} (floor {floor}); "
           f"training loop {out['loop_s']:.3f} s for {out['steps']} steps, "
           f"train_time_s {out['train_time_s']:.3f}; {out['samples']} live "
-          f"samples = {out['samples'] / out['loop_s']:.0f} samples/s; "
-          f"field_budget_dropped {out['field_budget_dropped']}; launches "
-          f"{launched}")
+          f"samples = {out['samples'] / out['loop_s']:.0f} samples/s "
+          f"({out['samples'] / out['steps']:.0f} per step"
+          + (f"; train_samples_per_s {out['train_samples_per_s']:.0f}"
+             if "train_samples_per_s" in out else "")
+          + f"); field_budget_dropped {out['field_budget_dropped']}; "
+          f"launches {launched}")
     if not out["psnr"] >= floor:
         raise AssertionError(f"{path}: PSNR {out['psnr']:.4f} below the "
                              f"floor {floor}")
     if out["field_budget_dropped"]:
         raise AssertionError(f"{path}: the field budget dropped samples")
-    return counts, check_trainer_inputs(dev, recorders, path)
+    return counts, check_trainer_inputs(dev, recorders, path), t
+
+
+def check_proposal_levels(dev, t, path: str) -> dict:
+    """After a proposal drive on the plain paths: K1, K2 and K4 against
+    their twins at the drive's shapes, on the run's own trained tables and
+    on the points one training batch gives each CP level (the proposal
+    level at the coarse interval midpoints, the main field's two levels at
+    the resampled ones), with a random cotangent for K4. The tolerances
+    of phase 3. Returns, per kernel, the shapes and their errors."""
+    from nerfacc_tpu_torch.ops import cp_encoder as cpe
+
+    kernels = _trainer_kernels()
+    seen = {}
+    for name, field in (("proposal", t.proposal), ("field", t.field)):
+        for i, lvl in enumerate(field.cp_levels):
+            def record(x, lvl=lvl, key=f"{name} level {i}", fwd=lvl.forward):
+                seen.setdefault(key, (lvl, x.detach().clone()))
+                return fwd(x)
+            lvl.forward = record
+    try:
+        rays, _ = t.scene.sample_batch(t.args.num_rays)
+        with torch.no_grad():
+            t.forward(rays.origins, rays.viewdirs,
+                      t.jitter(rays.origins.shape[0]))
+    finally:
+        for field in (t.proposal, t.field):
+            for lvl in field.cp_levels:
+                del lvl.forward
+    rng = torch.Generator(device=dev).manual_seed(SEED + 14)
+    found = {}
+    for key, (lvl, xu) in seen.items():
+        tables = tuple(a.detach() for a in lvl.tables())
+        G, R = tables[0].shape
+        g = torch.randn((xu.shape[0], R), generator=rng, device=dev)
+        _, us = cpe.cp_level_features_res_fwd(xu, *tables)
+        checks = (
+            ("cp_level_features", (xu, *tables)),
+            ("cp_level_features_res", (xu, *tables)),
+            ("cp_level_grads_res", (xu, g, *us, G)),
+        )
+        for name, args in checks:
+            module, attr, plain, compare = kernels[name]
+            label = f"{path} {key}: {name} {_shape_label(args, {})}"
+            err = compare(label, getattr(module, attr)(*args), plain(*args))
+            found.setdefault(name, []).append(dict(
+                path=path, shape=f"{key} {_shape_label(args, {})}",
+                max_abs_err=err))
+            print(f"{label}: max_abs_err {err:.3e}")
+    return found
+
+
+def check_unbounded_march(dev, t) -> None:
+    """Phase 15 after its drive, on the run's own grid, field and rays:
+    the auto-sized lattice, then the fused march (K5) and re-selection
+    (K6) against the unfused op chain on a training batch (4,096 rays x
+    146 groups x 128 slots, then 128 -> 64) and on one evaluation chunk
+    (``coarse_stride=1``, 2,048 rays, 128 -> 64): the march's masks
+    (before the cull) and the culled masks bit-equal, t within rtol 1e-5,
+    colours within 1e-5."""
+    from nerfacc_tpu_torch import render_rays
+
+    args = t.args
+    print(f"grid-unbounded trainer: max_samples_per_ray "
+          f"{args.max_samples_per_ray} (expect {U360_SAMPLES}), probe_groups "
+          f"{args.probe_groups} (expect {U360_GROUPS})")
+    if (args.max_samples_per_ray, args.probe_groups) != (U360_SAMPLES,
+                                                         U360_GROUPS):
+        raise AssertionError("grid-unbounded trainer: the lattice was not "
+                             "auto-sized as the JAX trainer sizes it")
+    rays, _ = t.scene.sample_batch(args.num_rays)
+    view = t.scene.rays_for_view(t.scene.test_poses[0])
+    chunk = args.test_chunk_size
+    cases = (
+        ("train batch", rays.origins, rays.viewdirs, t.render_kwargs),
+        ("evaluation chunk", view.origins[:chunk], view.viewdirs[:chunk],
+         dict(t.render_kwargs, coarse_stride=1, samples_budget=chunk * 128,
+              visible_samples_budget=chunk * 64)),
+    )
+    for label, o, d, kw in cases:
+        for prefilter in (False, True):
+            with torch.no_grad():
+                fused, plain = (render_rays(
+                    t.field, o, d, grid=t.grid, render_bkgd=None,
+                    return_extras=True,
+                    **dict(kw, use_pallas=up, prefilter_sigma=prefilter))
+                    for up in (True, False))
+            ef, ep = fused[4], plain[4]
+            name = (f"grid-unbounded {label}, "
+                    + ("after the cull" if prefilter else "the march"))
+            _check_equal(f"{name} masks", ef["masks"], ep["masks"])
+            for n in ("t_starts", "t_ends", "deltas"):
+                _check_close(f"{name} {n}", ef[n], ep[n], 1e-5, 0.0)
+            err = _check_close(f"{name} colours", fused[0], plain[0], 0.0,
+                               1e-4)
+            live = ef["t_starts"][ef["masks"]]
+            print(f"{name}: masks bit-equal {tuple(ef['masks'].shape)}, "
+                  f"{int(ef['masks'].sum())} live, t up to "
+                  f"{float(live.max()) if live.numel() else 0.0:.1f}, "
+                  f"colours max_abs_err {err:.3e}")
 
 
 def phase_trainers(dev) -> tuple:
@@ -1850,9 +1994,16 @@ def phase_trainers(dev) -> tuple:
     kernels (K1, K2, K4, K5, K6); phase 10, the NGP drive with the kernels
     (K5, K6, K7's one-launch entry); phase 11, the vanilla drive; phase 12,
     the D-NeRF drive (the MLP trainers march exactly and in one stage, so
-    they launch no kernel). Returns the launch counts per path and the
-    kernels' checks on the drives' inputs, merged per kernel."""
+    they launch no kernel); phase 13, the proposal trainer's drive with the
+    kernels (K1, K2, K4); phase 14, its 360 drive on the plain paths, then
+    K1, K2 and K4 on the run's tables and points, then the first
+    P360_KERNEL_STEPS steps of the drive with the kernels; phase 15, the grid
+    trainer's unbounded drive with the kernels (K1, K2, K4, K5, K6), then
+    its march on its own grid and rays. Returns the launch counts per path
+    and the kernels' checks on the drives' inputs, merged per kernel."""
     seed = ("--seed", str(TRAINER_SEED))
+    cp_kernels = ("cp_level_features", "cp_level_features_res",
+                  "cp_level_grads_res")
     drives = (
         ("trainer", "train_ngp_nerf_torch",
          lambda m: [*m.FLAGSHIP, *m.KERNELS, *seed], TRAINER_PSNR_FLOOR,
@@ -1866,14 +2017,36 @@ def phase_trainers(dev) -> tuple:
          lambda m: [*m.DRIVE, *seed], MLP_PSNR_FLOOR, ()),
         ("D-NeRF trainer", "train_mlp_dnerf_torch",
          lambda m: [*m.DRIVE, *seed], DNERF_PSNR_FLOOR, ()),
+        ("proposal trainer", "train_proposal_nerf_torch",
+         lambda m: [*m.DRIVE, *m.KERNELS, *seed], PROPOSAL_PSNR_FLOOR,
+         cp_kernels),
+        # the plain paths, as the JAX script runs it: the kernel path's
+        # numerics collapse this recipe at seeds 42 and 44, the kernels'
+        # twins too (ROADMAP.md Queue 3); its levels' kernels are held to
+        # their twins on the run's tables and points after the drive, and
+        # in training on the kernel path's first steps
+        ("proposal 360 trainer", "train_proposal_nerf_torch",
+         lambda m: [*m.DRIVE_360, *seed], PROPOSAL360_PSNR_FLOOR, ()),
+        ("proposal 360 trainer, kernel path", "train_proposal_nerf_torch",
+         lambda m: [*m.DRIVE_360, *m.KERNELS, *seed, "--max_steps",
+                    str(P360_KERNEL_STEPS)], 0.0, cp_kernels),
+        ("grid-unbounded trainer", "train_ngp_nerf_torch",
+         lambda m: [*m.U360, *m.KERNELS, *seed], U360_PSNR_FLOOR,
+         (*cp_kernels, "fused_select_grouped", "fused_reselect")),
     )
     paths, inputs = {}, {}
     for path, script, flags, floor, kernels in drives:
         module = load_example(script)
-        paths[path], found = run_drive(dev, path, module, flags(module),
-                                       floor, kernels)
+        paths[path], found, t = run_drive(dev, path, module, flags(module),
+                                          floor, kernels)
         for name, rows in found.items():
             inputs.setdefault(name, []).extend(rows)
+        if path == "grid-unbounded trainer":
+            check_unbounded_march(dev, t)
+        if path == "proposal 360 trainer":
+            for name, rows in check_proposal_levels(dev, t, path).items():
+                inputs.setdefault(name, []).extend(rows)
+        del t
         torch.cuda.empty_cache()
     return paths, inputs
 

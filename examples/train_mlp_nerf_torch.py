@@ -151,7 +151,7 @@ def main(argv=None) -> dict:
     """Train and evaluate; prints the JAX trainer's log lines, ``PSNR:``
     and ``train_time_s:``, and returns the run's numbers as the TensoCP
     twin's ``main`` does (no field budget here: ``field_budget_dropped``
-    is 0)."""
+    is 0) and the ``trainer``."""
     args = parse_args(argv)
     trainer = Trainer(args)
     total_samples = torch.zeros((), dtype=torch.int64, device=trainer.device)
@@ -176,7 +176,7 @@ def main(argv=None) -> dict:
     return dict(psnr=float(np.mean(psnrs)), psnrs=psnrs,
                 train_time_s=train_time, loop_s=loop_s,
                 samples=int(total_samples), field_budget_dropped=0,
-                steps=args.max_steps)
+                steps=args.max_steps, trainer=trainer)
 
 
 if __name__ == "__main__":

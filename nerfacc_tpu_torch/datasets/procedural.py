@@ -7,8 +7,10 @@ inside the box ``AABB``, position-dependent colors) is rendered by a
 dense quadrature of 512 samples per ray. Training against those images
 and scoring held-out views in PSNR exercises the same paths as the
 reference's Lego benchmark. ``ProceduralDynamicScene`` moves the same
-field rigidly over time, one timestamp per view, for the D-NeRF field. The
-GT images are rendered on the scene's device, ``chunk`` rays at a time.
+field rigidly over time, one timestamp per view, for the D-NeRF field;
+``Procedural360Scene`` sets it in a directional environment with no
+constant background, for the unbounded recipes. The GT images are
+rendered on the scene's device, ``chunk`` rays at a time.
 """
 
 from __future__ import annotations
@@ -97,6 +99,32 @@ def _render(rays_o, rays_d, bkgd, n_samples, shift=None):
     return color + bkgd * (1.0 - opacity)
 
 
+def env_color(d: torch.Tensor) -> torch.Tensor:
+    """Directional environment radiance (N, 3): a sky / ground gradient
+    plus azimuthal colour bands, constant in position — the analytic
+    analogue of a 360 capture's background. Unlike a constant background
+    it cannot be faked by per-view fog: an unbounded model has to put it
+    in its far field."""
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    up = d[..., 2:3]
+    m = 0.5 + 0.5 * torch.tanh(4.0 * up)
+    sky = torch.tensor([0.55, 0.68, 0.92], dtype=d.dtype, device=d.device)
+    ground = torch.tensor([0.42, 0.33, 0.24], dtype=d.dtype, device=d.device)
+    base = m * sky + (1.0 - m) * ground
+    az = torch.atan2(d[..., 1:2], d[..., 0:1])
+    freq = torch.tensor([[5.0, 9.0, 13.0]], dtype=d.dtype, device=d.device)
+    phase = torch.tensor([[0.0, 1.3, 2.1]], dtype=d.dtype, device=d.device)
+    bands = 0.18 * torch.sin(az * freq + phase)
+    return torch.clamp(base + bands * (1.0 - torch.abs(up)), 0.0, 1.0)
+
+
+def render_gt_env(rays_o: torch.Tensor, rays_d: torch.Tensor,
+                  n_samples: int = 512) -> torch.Tensor:
+    """Exact render of the analytic field over the directional environment
+    ``env_color`` (the 360 scene's ground truth)."""
+    return _render(rays_o, rays_d, env_color(rays_d), n_samples)
+
+
 def render_gt(rays_o: torch.Tensor, rays_d: torch.Tensor, bkgd: torch.Tensor,
               n_samples: int = 512) -> torch.Tensor:
     """Exact render of the analytic field (see ``_render``)."""
@@ -179,15 +207,19 @@ class ProceduralScene:
             for i in range(0, rays.origins.shape[0], self.chunk):
                 o = rays.origins[i:i + self.chunk]
                 d = rays.viewdirs[i:i + self.chunk]
-                if times is None:
-                    chunks.append(render_gt(o, d, self.bkgd))
-                else:
-                    t = torch.full((o.shape[0], 1), float(times[v]),
-                                   dtype=torch.float32, device=self.device)
-                    chunks.append(render_gt_dynamic(o, d, self.bkgd, t))
+                t = None if times is None else torch.full(
+                    (o.shape[0], 1), float(times[v]), dtype=torch.float32,
+                    device=self.device)
+                chunks.append(self._render_gt(o, d, t))
             images.append(torch.cat(chunks).reshape(self.height, self.width,
                                                     3))
         return torch.stack(images)
+
+    def _render_gt(self, rays_o, rays_d, t=None) -> torch.Tensor:
+        """The GT colours of a chunk of rays (at per-ray times ``t``)."""
+        if t is None:
+            return render_gt(rays_o, rays_d, self.bkgd)
+        return render_gt_dynamic(rays_o, rays_d, self.bkgd, t)
 
     def rays_for_view(self, pose: torch.Tensor) -> Rays:
         """The rays through every pixel of one view, row-major."""
@@ -234,3 +266,20 @@ class ProceduralDynamicScene(ProceduralScene):
         """Random pixels across all training images -> (rays, pixels, t)."""
         img_idx, rays, pixels = self._sample(num_rays)
         return rays, pixels, self.timestamps[img_idx][:, None]
+
+
+class Procedural360Scene(ProceduralScene):
+    """The 360-style unbounded scene: the bounded analytic content over
+    the directional environment ``env_color``. ``bkgd`` is ``None``: there
+    is no constant background to composite onto, so an unbounded model
+    must place the environment in its far field (the contracted outer
+    shell), as in a real 360 capture. Poses and ``sample_batch`` are the
+    parent's."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.pop("bkgd", None)
+        super().__init__(*args, **kwargs)
+        self.bkgd = None
+
+    def _render_gt(self, rays_o, rays_d, t=None) -> torch.Tensor:
+        return render_gt_env(rays_o, rays_d)

@@ -12,6 +12,8 @@ optimizer is the caller's: ``bench.py`` uses Adam at lr 5e-4
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .utils import render_rays
@@ -32,6 +34,25 @@ def hit_ray_loss(colors, pixels, opacities) -> torch.Tensor:
     per_ray = huber(colors, pixels).mean(-1)
     alive = (opacities[:, 0] > 0).to(per_ray.dtype)
     return (per_ray * alive).sum() / torch.clamp(alive.sum(), min=1.0)
+
+
+def normalized_disparity(t, near: float, far: float) -> torch.Tensor:
+    """``t`` in normalised disparity on [near, far] (0 at the near plane,
+    1 at the far one): where the unbounded trainers take the distortion
+    loss (MipNeRF-360 Eq. 15 uses normalised ray distance; in raw t the
+    far field's scale over-weights it)."""
+    inv_n, inv_f = 1.0 / near, 1.0 / far
+    return (inv_n - 1.0 / torch.clamp(t, min=1e-6)) / (inv_n - inv_f)
+
+
+def cosine_lr(optimizer, horizon: int, alpha: float = 0.1):
+    """optax's ``cosine_decay_schedule(lr, horizon, alpha)``: the learning
+    rate falls along a half cosine to ``alpha`` times its start over
+    ``horizon`` steps and stays there. Step it after each optimizer
+    step."""
+    return torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda t: (1.0 - alpha) * 0.5 * (1.0 + math.cos(
+            math.pi * min(t, horizon) / horizon)) + alpha)
 
 
 def multistep_lr(optimizer, horizon: int, gamma: float = 0.33):

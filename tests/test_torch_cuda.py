@@ -19,7 +19,12 @@ outside the table clamped into it, as the kernel documents). The MLP
 fields and the time-conditioned render, card against CPU: f32 GEMMs
 summed in another order (TF32 off), outputs within rtol 1e-5 / atol 1e-5,
 gradients within 1e-3 in L2 (a relu at 0 may flip), render masks
-bit-equal and colours within 1e-5.
+bit-equal and colours within 1e-5. The proposal trainer's step, card
+against CPU: bf16 heads, loss within 1e-4 relative; the resampled
+intervals move with the proposal's density, so the gradients are held
+to the JAX package's bound for the bf16 CP level (5e-2 in L2); with the
+CPU's resampled intervals given to the card's step, only the heads' bf16
+roundings and K4's order of sums differ: 1e-2 in L2.
 """
 
 import numpy as np
@@ -784,3 +789,138 @@ def test_render_with_timestamps_on_card_matches_cpu(cuda_device, mode):
     assert torch.equal(m1, m2) and int(m1.sum()) > 500
     for a, b in ((c1, c2), (o1, o2), (d1, d2)):
         torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_select_kernel_at_the_unbounded_recipe(cuda_device):
+    # K5 at the grid-unbounded recipe's train step: 4,096 rays x 146 groups
+    # of 16 x 128 slots, cone 0.004 from a jittered near plane 0.2 at step
+    # 1e-2, so that the selected slots reach t ~ 1e4
+    R, G, C, K = 4096, 146, 16, 128
+    live, gsize, t_min = _select_args(R, G, C, K, seed=15, device=cuda_device)
+    gsize[::2] = C  # most rays fill every group of the 2,336-point lattice
+    live = torch.minimum(live, gsize)
+    t_min = 0.2 + 1e-2 * torch.rand(R, generator=torch.Generator().manual_seed(
+        16)).to(cuda_device)
+    kw = dict(k_slots=K, step_size=1e-2, cone_angle=0.004)
+    got = fused_select_grouped(live, gsize, t_min, **kw)
+    want = fused_select_grouped_plain(live, gsize, t_min, **kw)
+    _assert_quads(got, want)
+    assert float(got[1][got[3]].max()) > 5e3
+
+
+@pytest.mark.cuda
+def test_reselect_kernel_at_the_unbounded_recipe(cuda_device):
+    # K6 at the recipe's 128 -> 64 (the register path's longest row), on
+    # the train step's 4,096 rays and an evaluation chunk's 2,048, with t
+    # out to 1e4
+    for R in (4096, 2048):
+        masks, ts, te, dt = _reselect_args(R, 128, seed=17,
+                                           device=cuda_device)
+        ts, te = ts * 1e4, ts * 1e4 + dt
+        want = fused_reselect_plain(masks, ts, te, dt, k2=64)
+        got = fused_reselect(masks, ts, te, dt, k2=64)
+        _assert_quads(got, want)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,B", [(64, 262144), (192, 393216)])
+def test_cp_kernels_at_the_proposal_levels(cuda_device, G, B):
+    # K1 / K2 / K4 at the proposal field's one level of 32 features: the
+    # proposal drives' (64, 32) over 4,096 x 64 coarse samples and the 360
+    # drive's (192, 32) over 4,096 x 96; the repo's bounds (features 1e-6
+    # absolute, gradients 1e-5 of the largest), inside the JAX package's
+    # (1e-3 forward, 5e-2 gradients)
+    rng = np.random.RandomState(18)
+    xu = _ray_ordered_xu(B, rng, step=1.0 / 64, per_ray=B // 4096)
+    tables = [(rng.randn(G, 32) * 0.2).astype(np.float32) for _ in range(3)]
+    g = rng.randn(B, 32).astype(np.float32)
+    xu, t0, t1, t2, g = (torch.as_tensor(a, device=cuda_device)
+                         for a in (xu, *tables, g))
+    feats, us = cp_level_features_res_fwd(xu, t0, t1, t2)
+    want_feats, want_us = cp_level_features_res_plain(xu, t0, t1, t2)
+    torch.testing.assert_close(feats, want_feats, rtol=0.0, atol=1e-6)
+    assert torch.equal(feats, cp_level_features(xu, t0, t1, t2))
+    for u, want in zip(us, want_us):
+        assert torch.equal(u, want)
+    _assert_grads_close(cp_level_grads_res(xu, g, *us, G),
+                        cp_level_grads_res_plain(xu, g, *us, G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fixed", [False, True])
+@pytest.mark.parametrize("unbounded", [False, True])
+def test_proposal_step_on_card_matches_cpu(cuda_device, unbounded, fixed):
+    # one proposal-trainer step (both fields through K2 / K4 on the card,
+    # the plain twins on the CPU) from the same weights, rays, pixels and
+    # jitter. The heads round f32 sums to bf16, which may move a value one
+    # bf16 step: loss within 1e-4. A moved proposal density moves the
+    # resampled intervals, and with them the main field's hat taps: each
+    # gradient within the JAX package's bound for the bf16 CP level, 5e-2
+    # in L2 (measured up to 1.7e-2 on the main field's tables, 1e-3 or
+    # less elsewhere). ``fixed``: the card's step renders the main field
+    # on the CPU step's resampled intervals, so both fields see the same
+    # points on both devices: each gradient within 1e-2 in L2 (measured
+    # up to 5.6e-5 bounded, 5.8e-4 unbounded)
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "train_proposal_nerf_torch", Path(__file__).resolve().parents[1]
+        / "examples" / "train_proposal_nerf_torch.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    flags = ["--num_rays", "256", "--image_size", "16", "--train_views", "4",
+             "--n_coarse", "32", "--n_fine", "16", "--prop_grid", "16",
+             "--use_kernel"]
+    if unbounded:
+        flags += ["--scene", "procedural360", "--unbounded"]
+    rng = np.random.RandomState(19)
+    u = torch.as_tensor(rng.rand(256).astype(np.float32))
+    px = torch.as_tensor(rng.rand(256, 3).astype(np.float32))
+    sampling = module.proposal_sampling_with_filter
+    cpu_segs = []
+
+    def keep_or_give_segments(*args, **kw):
+        segs, rounds = sampling(*args, **kw)
+        if not cpu_segs:  # the CPU step: keep its intervals
+            cpu_segs.append(segs)
+            return segs, rounds
+        dev = segs.t_starts.device
+        return type(segs)(*(a.to(dev) for a in cpu_segs[0])), rounds
+
+    results, rays = [], None
+    for device in (torch.device("cpu"), cuda_device):
+        t = module.Trainer(module.parse_args(flags + ["--device",
+                                                      device.type]))
+        if rays is None:  # the CPU scene's rays for both
+            rays, _ = t.scene.sample_batch(256)
+        before = (cp_level_features_res.launches,
+                  cp_level_grads_res.launches)
+        if fixed:
+            module.proposal_sampling_with_filter = keep_or_give_segments
+        try:
+            colors, _, dist, colors_prop, live = t.forward(
+                rays.origins.to(device), rays.viewdirs.to(device),
+                u.to(device))
+        finally:
+            module.proposal_sampling_with_filter = sampling
+        loss = t.loss(colors, colors_prop, dist, px.to(device))
+        loss.backward()
+        launched = (cp_level_features_res.launches - before[0],
+                    cp_level_grads_res.launches - before[1])
+        grads = {f"{name}.{k}": p.grad.detach().cpu()
+                 for name, m in (("field", t.field), ("proposal", t.proposal))
+                 for k, p in m.named_parameters()}
+        results.append((float(loss.detach()), int(live), grads, launched))
+    (loss_h, n_h, g_h, l_h), (loss_c, n_c, g_c, l_c) = results
+    # the main field's two levels and the proposal's one (density, then
+    # colour): four K2 and four K4 launches on the card, none on the CPU
+    assert l_c == (4, 4) and l_h == (0, 0)
+    assert abs(loss_c - loss_h) <= 1e-4 * loss_h and n_c == n_h > 0
+    errs = {k: float(torch.linalg.norm(g_c[k] - want)
+                     / torch.linalg.norm(want)) for k, want in g_h.items()}
+    print(f"proposal step card vs CPU (unbounded {unbounded}, fixed "
+          f"{fixed}): largest gradient L2 error {max(errs.values()):.3e}")
+    assert max(errs.values()) <= (1e-2 if fixed else 5e-2), errs

@@ -312,7 +312,9 @@ def test_port_exports_the_reference_names_it_claims():
                  "render_weight_from_alpha_dense",
                  "render_weight_from_density_dense",
                  "render_visibility_dense", "accumulate_along_rays_dense",
-                 "march_rays", "RaySegments", "update_grid"):
+                 "march_rays", "RaySegments", "update_grid",
+                 "sample_along_rays", "proposal_sampling_with_filter",
+                 "ray_resampling_dense", "loss_distortion_dense"):
         assert name in shared, name
     for name in ("render_transmittance_from_alpha_dense",
                  "render_transmittance_from_density_dense"):
