@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of nerfacc_tpu_torch's render path, TensoCP training step,
-hash-NGP training step and its trainers (seven drives) on one NVIDIA GPU.
+hash-NGP training step, its trainers (seven drives) and the reference's
+flat packed API on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -119,6 +120,28 @@ Phases (any failed check raises, and the script exits nonzero):
     run's inputs (K5 at 4,096 rays x 146 groups x 128 slots, K6 at 128 ->
     64 and on the evaluation's chunks), then the fused march against the
     unfused one on the run's grid and rays, masks bit-equal.
+16. The reference's flat packed API: each of the four requests through
+    ``ray_marching()`` (the grouped march, the visibility cull through
+    ``make_field_fns``' ``sigma_fn``, re-selection into 24 slots per ray)
+    and ``rendering()`` over ``rgb_sigma_fn``, with the kernels (K1, K5, K6
+    must launch, no training kernel; each then held to its twin on the
+    inputs the render gave it) and on the plain paths. The march's
+    masks bit-equal to the unfused march's, before and after the cull;
+    outputs finite with opacities in [0, 1]; the kernel path within
+    RENDER_ATOL / DEPTH_ATOL of the plain one; a 16x16 crop on the card
+    against the CPU. The segmented path at full size: one request's live
+    samples repacked ragged (``pack_data``, ``unpack_info``) and composited
+    through ``rendering()`` against the bridged render of the same field
+    outputs, within ``flat_render_bound``; ``rendering()`` timed bridged,
+    forced segmented and ragged, and the bridge check alone;
+    ``loss_distortion`` and ``ray_resampling`` on the segmented path
+    against their dense twins at 16,384 rays x 64 samples. Training
+    through ``rendering()`` and an MSE: one 512-ray step on the card
+    against the CPU, then 5 steps of 16,384 rays from bench.py's stream
+    (finite losses and parameters, K1, K2, K4, K5 and K6 launched, the
+    step's ms and live samples), then each of those kernels against its
+    twin on the inputs the five steps gave it (K1 at 786,432 points in the
+    cull, K2 / K4 at 393,216), reported as the path "flat train".
 Each drive prints its PSNR per view, loop seconds, live samples and
 samples/s, and the launches per kernel.
 
@@ -129,6 +152,7 @@ JSON, and the one before that the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1118,13 +1142,14 @@ def _live_samples(field, grid, o, d, use_pallas) -> int:
     return int(n)
 
 
-def _serve(field, grid, requests, use_pallas):
-    """Render every request; per-request wall time on the host clock."""
+def _serve(field, grid, requests, use_pallas, render=_render):
+    """Render every request through ``render(field, grid, o, d,
+    use_pallas)``; per-request wall time on the host clock."""
     outs, ms = [], []
     for o, d in requests:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outs.append(_render(field, grid, o, d, use_pallas))
+        outs.append(render(field, grid, o, d, use_pallas))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     return outs, ms
@@ -1272,46 +1297,44 @@ def _rel_l2(a, b) -> float:
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def check_train_card_vs_cpu(dev, o, d, px) -> None:
+def check_train_card_vs_cpu(dev, step, o, d, px, label="train step") -> None:
     """One step of CHECK_RAYS rays on the card (kernels) and on the CPU
-    (the same path, plain twins), from the same weights."""
-    from nerfacc_tpu_torch import train_step
-
+    (the same path, plain twins), from the same weights: ``step(field,
+    opt, grid, o, d, px) -> (loss, live samples)``."""
     results = []
     for device in (dev, torch.device("cpu")):
         field, grid = make_scene(device, use_kernel=True)
         opt = torch.optim.Adam(field.parameters(), lr=LR)
-        loss, n = train_step(field, opt, grid, o.to(device), d.to(device),
-                             px.to(device), **_train_kw(True, CHECK_RAYS))
+        loss, n = step(field, opt, grid, o.to(device), d.to(device),
+                       px.to(device))
         grads = {k: p.grad.cpu() for k, p in field.named_parameters()}
         results.append((float(loss), int(n), grads))
     (loss_c, n_c, g_c), (loss_h, n_h, g_h) = results
     rel = abs(loss_c - loss_h) / loss_h
     worst = max((_rel_l2(g_c[k], g_h[k]), k) for k in g_h)
-    print(f"train step card vs CPU ({CHECK_RAYS} rays): loss {loss_c:.7f} vs "
+    print(f"{label} card vs CPU ({CHECK_RAYS} rays): loss {loss_c:.7f} vs "
           f"{loss_h:.7f} (rel {rel:.2e}); live samples {n_c} vs {n_h}; "
           f"worst gradient rel L2 err {worst[0]:.2e} ({worst[1]})")
     if rel > TRAIN_LOSS_RTOL:
-        raise AssertionError(f"train loss card vs CPU: rel err {rel:.2e}")
+        raise AssertionError(f"{label} loss card vs CPU: rel err {rel:.2e}")
     if worst[0] > TRAIN_GRAD_L2:
-        raise AssertionError(f"gradient {worst[1]} card vs CPU: rel L2 err "
-                             f"{worst[0]:.2e}")
+        raise AssertionError(f"{label}: gradient {worst[1]} card vs CPU: rel "
+                             f"L2 err {worst[0]:.2e}")
     if abs(n_c - n_h) > max(2, n_h // 1000):
-        raise AssertionError(f"live samples card {n_c} vs CPU {n_h}")
+        raise AssertionError(f"{label}: live samples card {n_c} vs CPU {n_h}")
 
 
-def _timed_steps(field, opt, grid, batches, kw):
-    """Train on each (o, d, px) batch; per step: host ms ending in a
-    synchronize, loss, live samples and the kernels' launches."""
-    from nerfacc_tpu_torch import train_step
-
+def _timed_steps(field, opt, grid, batches, kw, step):
+    """Train on each (o, d, px) batch through ``step(field, opt, grid, o,
+    d, px, **kw)``; per step: host ms ending in a synchronize, loss, live
+    samples and the kernels' launches."""
     counters = kernel_counters()
     rec = []
     for o, d, px in batches:
         before = {k: c.launches for k, c in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss, n = train_step(field, opt, grid, o, d, px, **kw)
+        loss, n = step(field, opt, grid, o, d, px, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rec.append((ms, float(loss), int(n), {
@@ -1328,20 +1351,23 @@ def _check_finite_params(name, field) -> None:
 def phase_train(dev) -> dict:
     """The training step at full width, its plain twin, and the grid
     update; returns the launch counts of each path."""
+    from nerfacc_tpu_torch import train_step
+
     paths = {}
     o, d, px = bench_stream(dev, TRAIN_STEPS + 1)
-    check_train_card_vs_cpu(dev, o[0, :CHECK_RAYS], d[0, :CHECK_RAYS],
-                            px[0, :CHECK_RAYS])
+    check_train_card_vs_cpu(
+        dev, lambda *a: train_step(*a, **_train_kw(True, CHECK_RAYS)),
+        o[0, :CHECK_RAYS], d[0, :CHECK_RAYS], px[0, :CHECK_RAYS])
 
     field, grid = make_scene(dev, use_kernel=True)
     opt = torch.optim.Adam(field.parameters(), lr=LR)
     kw = _train_kw(True, TRAIN_RAYS)
     batch = [(o[i], d[i], px[i]) for i in range(TRAIN_STEPS + 1)]
-    _timed_steps(field, opt, grid, batch[:1], kw)  # warm-up
+    _timed_steps(field, opt, grid, batch[:1], kw, train_step)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     rec, paths["train"] = drive(
         f"{TRAIN_STEPS} training steps",
-        lambda: _timed_steps(field, opt, grid, batch[1:], kw),
+        lambda: _timed_steps(field, opt, grid, batch[1:], kw, train_step),
         ("cp_level_features_res", "cp_level_grads_res",
          "fused_select_grouped"),
         ("cp_level_features", "cp_level_grads", "fused_reselect",
@@ -1370,7 +1396,7 @@ def phase_train(dev) -> dict:
 
     # a repeated batch: the loss after TRAIN_STEPS steps is below step 0's
     losses = [r[1] for r in _timed_steps(
-        field, opt, grid, batch[:1] * (TRAIN_STEPS + 1), kw)]
+        field, opt, grid, batch[:1] * (TRAIN_STEPS + 1), kw, train_step)]
     print(f"repeated batch: loss {losses[0]:.7f} -> {losses[-1]:.7f} after "
           f"{TRAIN_STEPS} steps")
     if not losses[-1] < losses[0]:
@@ -1380,10 +1406,11 @@ def phase_train(dev) -> dict:
     pfield, _ = make_scene(dev, use_kernel=False)
     popt = torch.optim.Adam(pfield.parameters(), lr=LR)
     pkw = _train_kw(False, TRAIN_RAYS)
-    _timed_steps(pfield, popt, grid, batch[:1], pkw)  # warm-up
+    _timed_steps(pfield, popt, grid, batch[:1], pkw, train_step)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     prec, _ = drive("plain training steps",
-                    lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw),
+                    lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw,
+                                         train_step),
                     (), tuple(kernel_counters()))
     _check_finite_params("plain training", pfield)
     pms = [r[0] for r in prec]
@@ -1521,7 +1548,7 @@ def check_ngp_card_vs_cpu(dev, o, d, px) -> None:
 def phase_ngp(dev) -> dict:
     """The hash-NGP training step at full width, its twin without kernels
     and one NGP render request; returns the launch counts of each path."""
-    from nerfacc_tpu_torch import render_rays
+    from nerfacc_tpu_torch import render_rays, train_step
 
     paths = {}
     o, d, px = bench_stream(dev, NGP_STEPS + 1)
@@ -1537,7 +1564,7 @@ def phase_ngp(dev) -> dict:
     opt = torch.optim.Adam(field.parameters(), lr=LR)
     kw = _ngp_kw(True, TRAIN_RAYS)
     batch = [(o[i], d[i], px[i]) for i in range(NGP_STEPS + 1)]
-    _timed_steps(field, opt, grid, batch[:1], kw)  # warm-up
+    _timed_steps(field, opt, grid, batch[:1], kw, train_step)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     # the table gradient is one launch: the per-level kernel must not run
     others = ("cp_level_features", "cp_level_features_res", "cp_level_grads",
@@ -1545,7 +1572,7 @@ def phase_ngp(dev) -> dict:
               "table_gather")
     rec, paths["ngp train"] = drive(
         f"{NGP_STEPS} NGP training steps",
-        lambda: _timed_steps(field, opt, grid, batch[1:], kw),
+        lambda: _timed_steps(field, opt, grid, batch[1:], kw, train_step),
         ("hash_grad_scatter_levels", "fused_select_grouped"), others,
     )
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1576,7 +1603,7 @@ def phase_ngp(dev) -> dict:
 
     # a repeated batch: the loss after NGP_STEPS steps is below step 0's
     losses = [r[1] for r in _timed_steps(
-        field, opt, grid, batch[:1] * (NGP_STEPS + 1), kw)]
+        field, opt, grid, batch[:1] * (NGP_STEPS + 1), kw, train_step)]
     print(f"NGP repeated batch: loss {losses[0]:.7f} -> {losses[-1]:.7f} "
           f"after {NGP_STEPS} steps")
     if not losses[-1] < losses[0]:
@@ -1600,9 +1627,10 @@ def phase_ngp(dev) -> dict:
     pfield, _ = make_ngp_scene(dev, pallas_grad=False)
     popt = torch.optim.Adam(pfield.parameters(), lr=LR)
     pkw = _ngp_kw(False, TRAIN_RAYS)
-    _timed_steps(pfield, popt, grid, batch[:1], pkw)  # warm-up
+    _timed_steps(pfield, popt, grid, batch[:1], pkw, train_step)  # warm-up
     prec, _ = drive("plain NGP training steps",
-                    lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw),
+                    lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw,
+                                         train_step),
                     (), tuple(kernel_counters()))
     _check_finite_params("plain NGP training", pfield)
     pms = [r[0] for r in prec]
@@ -1778,6 +1806,21 @@ def _trainer_kernels():
     }
 
 
+@contextlib.contextmanager
+def recording(names):
+    """An InputRecorder in place of each named kernel's wrapper (a name of
+    ``_trainer_kernels``) while the block runs; yields them by name."""
+    kernels = _trainer_kernels()
+    recorders = {name: InputRecorder(*kernels[name][:2]) for name in names}
+    for rec in recorders.values():
+        setattr(rec.module, rec.attr, rec)
+    try:
+        yield recorders
+    finally:
+        for rec in recorders.values():
+            setattr(rec.module, rec.attr, rec.wrapped)
+
+
 def _shape_label(args, kw) -> str:
     dims = ["x".join(map(str, a.shape)) if torch.is_tensor(a) else str(a)
             for a in args]
@@ -1856,18 +1899,10 @@ def run_drive(dev, path: str, trainer, argv, floor: float,
     ``must_launch`` against its twin on the inputs the run gave it.
     Returns the run's launch counts, those checks and the run's
     ``Trainer``."""
-    kernels = _trainer_kernels()
-    recorders = {name: InputRecorder(*kernels[name][:2])
-                 for name in must_launch}
-    for rec in recorders.values():
-        setattr(rec.module, rec.attr, rec)
-    try:
+    with recording(must_launch) as recorders:
         out, counts = drive(
             path, lambda: trainer.main(list(argv)), must_launch,
             [k for k in kernel_counters() if k not in must_launch])
-    finally:
-        for rec in recorders.values():
-            setattr(rec.module, rec.attr, rec.wrapped)
     t = out.pop("trainer")
     launched = ", ".join(f"{KERNEL_TAGS[k]} {n}" for k, n in counts.items()
                          if n) or "none"
@@ -2051,6 +2086,372 @@ def phase_trainers(dev) -> tuple:
     return paths, inputs
 
 
+# Phase 16: the reference's flat packed API, ray_marching() -> rendering()
+# over make_field_fns' closures, at the request's width
+FLAT_MARCH_KW = dict(scene_aabb=AABB, render_step_size=5e-3,
+                     max_samples_per_ray=1024, coarse_stride=16,
+                     probe_dilation=2, probe_groups=32)
+FLAT_RAYS, FLAT_SAMPLES = CHUNK, 64  # loss_distortion / ray_resampling
+FLAT_RESAMPLES = 32
+F32_U = 2.0 ** -24  # f32 unit roundoff
+
+
+def _flat_kw(n_rays: int, visible: bool = True) -> dict:
+    """The request's march: 48 slots per ray, 24 after the cull."""
+    kw = dict(FLAT_MARCH_KW, samples_budget=n_rays * 48)
+    if visible:
+        kw["visible_samples_budget"] = n_rays * 24
+    return kw
+
+
+def _flat_request(field, grid, o, d, use_pallas):
+    """One request through the reference's two calls; returns the render
+    and the packed samples."""
+    from nerfacc_tpu_torch import make_field_fns, ray_marching, rendering
+
+    sigma_fn, rgb_sigma_fn = make_field_fns(field, o, d)
+    with torch.no_grad():
+        s = ray_marching(o, d, grid=grid, sigma_fn=sigma_fn,
+                         use_pallas=use_pallas, **_flat_kw(o.shape[0]))
+        out = rendering(s.t_starts, s.t_ends, s.ray_indices, o.shape[0],
+                        rgb_sigma_fn=rgb_sigma_fn,
+                        render_bkgd=torch.ones(3, device=o.device),
+                        masks=s.masks)
+    return out, s
+
+
+def flat_render_bound(k_slots: int, n_samples: int, t_max: float):
+    """How far two renders of the same samples may differ when one
+    composites a dense (R, K) view (row cumsums, row sums) and the other
+    the flat buffer (segmented scans, segment sums): the same terms,
+    summed in another order. With u the f32 unit roundoff and L =
+    ceil(log2 n_samples): the exclusive sum of sigma delta >= 0 is off by
+    at most (K - 1) u acc along a row and L u acc along the scan's tree,
+    so T = exp(-acc) differs by at most (K + L) u T acc + 4 u <= (K + L) u
+    / e + 4 u (x e^-x <= 1 / e; exp within 2 ulp on each side); a weight
+    T alpha (alpha computed alike) by that plus 2 u. A sum of K weights
+    times values in [0, 1] then differs by K times that plus 2 K u (each
+    side's order of sums); colors add the opacity's error through the
+    background; depths scale by t_max. Returns (colors, opacities,
+    depths)."""
+    L = int(np.ceil(np.log2(n_samples)))
+    per_weight = (k_slots + L) * F32_U / np.e + 6 * F32_U
+    opac = k_slots * per_weight + 2 * k_slots * F32_U
+    return 2 * opac + 2 * F32_U, opac, t_max * opac
+
+
+def _repack_ragged(s, rgbs, sigmas, n_rays):
+    """A request's live samples packed ragged: ``pack_data`` on the march's
+    mask, then ``unpack_info``. Returns (t_starts, t_ends, rgbs, sigmas,
+    ray_indices, valid) of the packed buffer."""
+    from nerfacc_tpu_torch import pack_data, unpack_info
+
+    k = s.masks.numel() // n_rays
+    data = torch.cat([s.t_starts, s.t_ends, rgbs, sigmas.reshape(-1, 1)],
+                     dim=1).reshape(n_rays, k, 6)
+    packed, info, valid = pack_data(data, s.masks.reshape(n_rays, k))
+    ri = unpack_info(info, packed.shape[0])
+    return (packed[:, 0:1], packed[:, 1:2], packed[:, 2:5], packed[:, 5:6],
+            ri, valid)
+
+
+def check_flat_segmented(field, grid, o, d) -> dict:
+    """The segmented path at full size: one request's live samples repacked
+    ragged and composited through ``rendering()`` (no bridge) against the
+    bridged render of the march's own buffer, the field's outputs computed
+    once and given to both. Then ``rendering()`` timed bridged and forced
+    segmented on the same buffer, and the bridge check alone."""
+    import nerfacc_tpu_torch.vol_rendering as pvr
+    from nerfacc_tpu_torch import make_field_fns, rendering
+
+    n = o.shape[0]
+    (_, s) = _flat_request(field, grid, o, d, True)
+    _, rgb_sigma_fn = make_field_fns(field, o, d)
+    with torch.no_grad():
+        rgbs, sigmas = rgb_sigma_fn(s.t_starts, s.t_ends, s.ray_indices)
+    bkgd = torch.ones(3, device=o.device)
+
+    def render(ts, te, ri, rgb, sig, masks):
+        return rendering(ts, te, ri, n, rgb_sigma_fn=lambda *a: (rgb, sig),
+                         render_bkgd=bkgd, masks=masks)
+
+    bridged = render(s.t_starts, s.t_ends, s.ray_indices, rgbs, sigmas,
+                     s.masks)
+    ts, te, rg, sg, ri, valid = _repack_ragged(s, rgbs, sigmas, n)
+    n_samples = ts.shape[0]
+    if pvr._detect_dense_layout(ri, None, n_samples, n) is not None:
+        raise AssertionError("the ragged repack was taken for dense")
+    ragged = render(ts, te, ri, rg, sg, valid)
+    t_max = float((s.t_ends[s.masks]).max())
+    k = n_samples // n
+    bounds = flat_render_bound(k, n_samples, t_max)
+    errs = [_check_close(f"ragged segmented render {name} vs bridged", a, b,
+                         0.0, tol)
+            for name, a, b, tol in zip(("colors", "opacities", "depths"),
+                                       ragged, bridged, bounds)]
+    print(f"flat segmented (ragged repack, {int(valid.sum())} live of "
+          f"{n_samples}) vs bridged: max abs diff colors {errs[0]:.3e} "
+          f"opacities {errs[1]:.3e} depths {errs[2]:.3e} (bounds "
+          f"{bounds[0]:.3e} / {bounds[1]:.3e} / {bounds[2]:.3e}, K={k}, "
+          f"t_max={t_max:.3f})")
+
+    def segmented():
+        pvr.DENSE_BRIDGE = False
+        try:
+            render(s.t_starts, s.t_ends, s.ray_indices, rgbs, sigmas, s.masks)
+        finally:
+            pvr.DENSE_BRIDGE = True
+
+    times = dict(
+        bridged=median_ms(lambda: render(s.t_starts, s.t_ends, s.ray_indices,
+                                         rgbs, sigmas, s.masks)),
+        segmented=median_ms(segmented),
+        ragged=median_ms(lambda: render(ts, te, ri, rg, sg, valid)),
+        bridge_check=median_ms(lambda: pvr._detect_dense_layout(
+            s.ray_indices, None, n_samples, n)),
+    )
+    print(f"rendering() at {n} rays x {k} slots, the field's outputs given "
+          f"(ms, median of 20): bridged {times['bridged']:.4f}  forced "
+          f"segmented {times['segmented']:.4f}  ragged repack "
+          f"{times['ragged']:.4f}  the bridge check alone "
+          f"{times['bridge_check']:.4f}  [{smi_line()}]")
+    return times
+
+
+def _flat_random_rays(dev, n_rays, k, seed):
+    """(t_starts, t_ends, weights, masks) of (n_rays, k), rendering-like:
+    sorted contiguous intervals, weights summing to ~0.5 per ray, 30%
+    zero, 80% live."""
+    rng = np.random.RandomState(seed)
+    edges = np.cumsum(rng.rand(n_rays, k + 1) * 0.1, axis=1)
+    w = rng.rand(n_rays, k) / k
+    w[rng.rand(n_rays, k) < 0.3] = 0.0
+    m = rng.rand(n_rays, k) < 0.8
+    m[::97] = False  # rays with no live sample
+    return [torch.as_tensor(a, device=dev) for a in (
+        edges[:, :-1].astype(np.float32), edges[:, 1:].astype(np.float32),
+        w.astype(np.float32), m)]
+
+
+def check_flat_distortion_and_resampling(dev) -> None:
+    """``loss_distortion`` and ``ray_resampling`` on the segmented path
+    (the bridge off) against their dense twins at FLAT_RAYS x
+    FLAT_SAMPLES."""
+    import nerfacc_tpu_torch.vol_rendering as pvr
+    from nerfacc_tpu_torch import (
+        loss_distortion,
+        loss_distortion_dense,
+        ray_resampling,
+        ray_resampling_dense,
+    )
+    from nerfacc_tpu_torch.cdf import resampling_targets, weight_cdf
+
+    R, K = FLAT_RAYS, FLAT_SAMPLES
+    ts, te, w, m = _flat_random_rays(dev, R, K, seed=16)
+    ri = torch.arange(R, dtype=torch.int32, device=dev).repeat_interleave(K)
+    flat = [x.reshape(-1) for x in (w, ts, te, m)]
+    pvr.DENSE_BRIDGE = False
+    try:
+        loss = loss_distortion(None, flat[0], flat[1], flat[2],
+                               ray_indices=ri, n_rays=R, masks=flat[3])
+        res = ray_resampling(None, flat[1], flat[2], flat[0], FLAT_RESAMPLES,
+                             ray_indices=ri, n_rays=R, masks=flat[3])
+    finally:
+        pvr.DENSE_BRIDGE = True
+    want = loss_distortion_dense(w, ts, te, masks=m)
+    # the same terms summed in another order (see flat_render_bound): the
+    # prefix sums A, B off by (K + L) u W and (K + L) u W M per sample
+    # (W the ray's weight sum, M its largest midpoint), so w (m A - B)
+    # summed over the ray by (4 (K + L) + 8) u W^2 M, each side's final
+    # sums by 2 K u W^2 M more, and the uniform term by 2 K u D W^2 / 3
+    # (D the widest interval)
+    L = int(np.ceil(np.log2(R * K)))
+    wl = torch.where(m, w, torch.zeros_like(w))
+    W = wl.sum(1)
+    M = ((ts + te) / 2).max(1).values
+    D = (te - ts).max(1).values
+    tol = F32_U * W * W * ((4 * (K + L) + 8 + 4 * K) * M + 2 * K * D / 3)
+    err = (loss - want).abs()
+    if bool((err > tol).any()):
+        raise AssertionError(f"flat loss_distortion vs dense: "
+                             f"{int((err > tol).sum())} rays outside the "
+                             f"bound (max abs err {float(err.max()):.3e})")
+    print(f"flat loss_distortion ({R} rays x {K}) vs dense: max abs diff "
+          f"{float(err.max()):.3e} (largest bound {float(tol.max()):.3e}, "
+          f"largest share of its bound "
+          f"{float((err / torch.clamp(tol, min=1e-30)).max()):.3f})")
+
+    s2, e2, mk2 = ray_resampling_dense(ts, te, w, FLAT_RESAMPLES, masks=m)
+    _check_equal("flat ray_resampling masks vs dense", res.masks,
+                 mk2.reshape(-1))
+    # the flat path searches the global f32 CDF r + cdf, which resolves a
+    # target only to the f32 spacing at r (2^-10 at 16,384 rays): a bin may
+    # take the neighbouring interval where its target lies within two such
+    # spacings (and the two CDFs' last-bit differences) of a CDF value.
+    # Elsewhere t agrees within the tests' bound, rtol 1e-4 / atol 1e-5
+    got_s = res.t_starts.reshape(R, FLAT_RESAMPLES)
+    got_e = res.t_ends.reshape(R, FLAT_RESAMPLES)
+    off = ~(torch.isclose(got_s, s2, rtol=1e-4, atol=1e-5)
+            & torch.isclose(got_e, e2, rtol=1e-4, atol=1e-5)) & mk2
+    cdf = weight_cdf(w, m)
+    u = resampling_targets(FLAT_RESAMPLES, dev)
+    spacing = torch.as_tensor(
+        np.spacing(np.arange(1, R + 1, dtype=np.float32)), device=dev)
+    near = (cdf[:, :, None] - u[None, None, :]).abs().amin(1)  # (R, n + 1)
+    seam = near <= (2 * spacing + 1e-5)[:, None]
+    # bin b's interval bounds come from targets b and b + 1
+    excused = seam[:, :-1] | seam[:, 1:]
+    if bool((off & ~excused).any()):
+        raise AssertionError(f"flat ray_resampling vs dense: "
+                             f"{int((off & ~excused).sum())} bins differ "
+                             "away from a CDF seam")
+    print(f"flat ray_resampling ({R} rays x {K} -> {FLAT_RESAMPLES}) vs "
+          f"dense: masks bit-equal, {int(off.sum())} of {int(mk2.sum())} "
+          f"live bins differ, all at a CDF seam of the global f32 CDF "
+          f"({int(excused.sum())} bins lie at one)")
+
+
+def flat_train_step(field, opt, grid, o, d, px):
+    """One training step through the reference's user path: the culled
+    march, ``rendering()`` and the MSE on a white background, Adam."""
+    from nerfacc_tpu_torch import make_field_fns, ray_marching, rendering
+
+    opt.zero_grad(set_to_none=True)
+    sigma_fn, rgb_sigma_fn = make_field_fns(field, o, d)
+    s = ray_marching(o, d, grid=grid, sigma_fn=sigma_fn,
+                     use_pallas=True, **_flat_kw(o.shape[0]))
+    colors, _, _ = rendering(s.t_starts, s.t_ends, s.ray_indices, o.shape[0],
+                             rgb_sigma_fn=rgb_sigma_fn,
+                             render_bkgd=torch.ones(3, device=o.device),
+                             masks=s.masks)
+    loss = torch.mean((colors - px) ** 2)
+    loss.backward()
+    opt.step()
+    return loss.detach(), s.masks.sum()
+
+
+def phase_flat(dev) -> dict:
+    """Phase 16: the flat packed API. Returns the launch counts of the flat
+    render of the requests and of the flat training steps, and each
+    kernel's checks against its twin on the inputs those two paths gave
+    it."""
+    from nerfacc_tpu_torch import make_field_fns, ray_marching
+
+    t_phase = time.perf_counter()
+    paths = {}
+    requests = make_requests(dev)
+    field, grid = make_scene(dev, use_kernel=True)
+    plain_field, _ = make_scene(dev, use_kernel=False)
+    plain_field.load_state_dict(field.state_dict())
+
+    # the march through the kernels vs the unfused march, before and after
+    # the cull (the same field on both)
+    o, d = requests[0]
+    with torch.no_grad():
+        for cull in (False, True):
+            kw = _flat_kw(CHUNK, visible=cull)
+            if cull:
+                kw["sigma_fn"] = make_field_fns(field, o, d)[0]
+            a = ray_marching(o, d, grid=grid, use_pallas=True, **kw)
+            b = ray_marching(o, d, grid=grid, use_pallas=False, **kw)
+            what = "after the cull" if cull else "before the cull"
+            _check_equal(f"flat march masks {what}", a.masks, b.masks)
+            _check_equal(f"flat march ray_indices {what}", a.ray_indices,
+                         b.ray_indices)
+            for n, x, y in (("t_starts", a.t_starts, b.t_starts),
+                            ("t_ends", a.t_ends, b.t_ends)):
+                _check_close(f"flat march {n} {what}", x, y, T_RTOL, T_ATOL)
+            print(f"flat march {what}: masks bit-equal, {int(a.masks.sum())} "
+                  f"live of {a.masks.numel()}")
+
+    _serve(field, grid, requests, True, _flat_request)  # warm-up
+    _serve(plain_field, grid, requests, False, _flat_request)
+    render_kernels = ("cp_level_features", "fused_select_grouped",
+                      "fused_reselect")
+    with recording(render_kernels) as recorders:
+        (outs, ms), paths["flat render"] = drive(
+            f"the flat render of {N_VIEWS} requests",
+            lambda: _serve(field, grid, requests, True, _flat_request),
+            render_kernels,
+            ("cp_level_features_res", "cp_level_grads", "cp_level_grads_res",
+             "hash_grad_scatter", "hash_grad_scatter_levels",
+             "table_gather"),
+        )
+    inputs = check_trainer_inputs(dev, recorders, "flat render")
+    plain_outs, plain_ms = _serve(plain_field, grid, requests, False,
+                                  _flat_request)
+    for i, ((out, s), (pout, _)) in enumerate(zip(outs, plain_outs)):
+        _check_outputs(f"flat request {i}", *out, CHUNK)
+        _check_outputs(f"flat plain request {i}", *pout, CHUNK)
+        errs = [_check_close(f"flat request {i} {n} vs plain", a, b, 0.0, tol)
+                for n, a, b, tol in zip(("colors", "opacities", "depths"),
+                                        out, pout,
+                                        (RENDER_ATOL, RENDER_ATOL,
+                                         DEPTH_ATOL))]
+        print(f"flat request {i}: kernels {ms[i]:.2f} ms plain "
+              f"{plain_ms[i]:.2f} ms, {int(s.masks.sum())} live samples of "
+              f"{s.masks.numel()}; max abs diff colors {errs[0]:.2e} "
+              f"opacities {errs[1]:.2e} depths {errs[2]:.2e}  mean opacity "
+              f"{float(out[1].mean()):.4f}")
+    print(f"flat request latency median: kernels {statistics.median(ms):.2f} "
+          f"ms  plain {statistics.median(plain_ms):.2f} ms  [{smi_line()}]")
+
+    # a 16x16 crop at the image centre, on the card vs on the CPU
+    rows = torch.arange(IMAGE // 2 - 8, IMAGE // 2 + 8)
+    crop = (rows[:, None] * IMAGE + rows[None]).reshape(-1).to(dev)
+    o, d = (t[crop] for t in requests[0])
+    cuda_out, _ = _flat_request(field, grid, o, d, True)
+    cpu_field, cpu_grid = make_scene(torch.device("cpu"), use_kernel=True)
+    cpu_out, _ = _flat_request(cpu_field, cpu_grid, o.cpu(), d.cpu(), True)
+    errs = [_check_close(f"flat crop {n} card vs CPU", a.cpu(), b, 0.0, tol)
+            for n, a, b, tol in zip(("colors", "opacities", "depths"),
+                                    cuda_out, cpu_out,
+                                    (RENDER_ATOL, RENDER_ATOL, DEPTH_ATOL))]
+    print(f"flat crop 16x16 card vs CPU: max abs diff colors {errs[0]:.2e} "
+          f"opacities {errs[1]:.2e} depths {errs[2]:.2e}")
+
+    check_flat_segmented(field, grid, *requests[0])
+    check_flat_distortion_and_resampling(dev)
+
+    # training through rendering(): one CHECK_RAYS step on the card and on
+    # the CPU, then TRAIN_STEPS steps of TRAIN_RAYS from bench.py's stream,
+    # each kernel then held to its twin on the inputs those steps gave it
+    bo, bd, bpx = bench_stream(dev, TRAIN_STEPS + 1)
+    check_train_card_vs_cpu(dev, flat_train_step, bo[0, :CHECK_RAYS],
+                            bd[0, :CHECK_RAYS], bpx[0, :CHECK_RAYS],
+                            label="flat train step")
+    opt = torch.optim.Adam(field.parameters(), lr=LR)
+    batches = [(bo[i], bd[i], bpx[i]) for i in range(TRAIN_STEPS + 1)]
+    _timed_steps(field, opt, grid, batches[:1], {}, flat_train_step)
+    train_kernels = ("cp_level_features_res", "cp_level_grads_res",
+                     "fused_select_grouped", "fused_reselect",
+                     "cp_level_features")
+    with recording(train_kernels) as recorders:
+        rec, paths["flat train"] = drive(
+            f"{TRAIN_STEPS} flat training steps",
+            lambda: _timed_steps(field, opt, grid, batches[1:], {},
+                                 flat_train_step),
+            train_kernels,
+            ("cp_level_grads", "hash_grad_scatter",
+             "hash_grad_scatter_levels", "table_gather"),
+        )
+    for name, rows in check_trainer_inputs(dev, recorders,
+                                           "flat train").items():
+        inputs.setdefault(name, []).extend(rows)
+    if not all(np.isfinite(r[1]) for r in rec):
+        raise AssertionError(f"flat train losses {[r[1] for r in rec]}")
+    _check_finite_params("flat training", field)
+    step_ms = [r[0] for r in rec]
+    print(f"flat train steps ({TRAIN_RAYS} rays): losses "
+          f"{[round(r[1], 6) for r in rec]}; step median "
+          f"{statistics.median(step_ms):.3f} ms (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}); live samples per step {[r[2] for r in rec]}"
+          f"  [{smi_line()}]")
+    print(f"phase 16 (the flat packed API): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths, inputs
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2063,6 +2464,10 @@ def main() -> None:
     paths.update(phase_gather_script(dev))
     trainer_counts, trainer_inputs = phase_trainers(dev)
     paths.update(trainer_counts)
+    flat_counts, flat_inputs = phase_flat(dev)
+    paths.update(flat_counts)
+    for name, rows in flat_inputs.items():
+        trainer_inputs.setdefault(name, []).extend(rows)
     for entry in report:
         if entry["name"] in trainer_inputs:
             rows = trainer_inputs[entry["name"]]

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 import warnings
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,6 +44,31 @@ class RaySegments(NamedTuple):
     t_ends: torch.Tensor  # (n_rays, K) f32 — lattice interval end
     deltas: torch.Tensor  # (n_rays, K) f32 — integration width (>= te - ts)
     masks: torch.Tensor  # (n_rays, K) bool
+
+    @property
+    def n_rays(self) -> int:
+        return self.t_starts.shape[0]
+
+    @property
+    def slots_per_ray(self) -> int:
+        return self.t_starts.shape[1]
+
+    @property
+    def ray_indices(self) -> torch.Tensor:
+        """(n_rays K,) int32: the flat view's sorted ray of each slot."""
+        r, k = self.t_starts.shape
+        return torch.arange(r, dtype=torch.int32,
+                            device=self.t_starts.device).repeat_interleave(k)
+
+
+class PackedSamples(NamedTuple):
+    """Flat packed samples of static capacity (the reference's layout
+    ``(ray_indices, t_starts, t_ends)`` plus a validity mask)."""
+
+    ray_indices: torch.Tensor  # (budget,) int32, sorted ascending
+    t_starts: torch.Tensor  # (budget, 1) f32
+    t_ends: torch.Tensor  # (budget, 1) f32
+    masks: torch.Tensor  # (budget,) bool
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -515,3 +540,114 @@ def _resolve_t_range(
                        device=generator.device).to(t_min.device)
         t_min = t_min + u * render_step_size
     return t_min, t_max
+
+
+def ray_marching(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t_min: Optional[torch.Tensor] = None,
+    t_max: Optional[torch.Tensor] = None,
+    scene_aabb: Optional[torch.Tensor] = None,
+    grid: Optional[OccupancyGrid] = None,
+    sigma_fn: Optional[Callable] = None,
+    alpha_fn: Optional[Callable] = None,
+    early_stop_eps: float = 1e-4,
+    alpha_thre: float = 0.0,
+    near_plane: Optional[float] = None,
+    far_plane: Optional[float] = None,
+    render_step_size: float = 1e-3,
+    stratified: bool = False,
+    cone_angle: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    max_samples_per_ray: int = 512,
+    samples_budget: Optional[int] = None,
+    visible_samples_budget: Optional[int] = None,
+    coarse_stride: int = 1,
+    dt_max: float = MAX_DIST,
+    probe_dilation: int = 1,
+    probe_groups: Optional[int] = None,
+    exact_recheck: bool = True,
+    use_pallas: Optional[bool] = None,
+) -> PackedSamples:
+    """March rays with empty- and occluded-space skipping (reference
+    ``ray_marching.py:13-222``) into flat packed samples. No gradient is
+    taken.
+
+    The t-range is the explicit ``t_min`` / ``t_max``, else the
+    ``scene_aabb`` intersection, else ``[0, 1e10]``, clamped to the near
+    and far planes; ``stratified`` adds ``U[0, 1) * render_step_size`` to
+    ``t_min``, drawn from ``generator`` (required then).
+
+    Static shapes: ``max_samples_per_ray`` is the candidate lattice S;
+    ``samples_budget`` gives each ray ``K = min(S, ceil(budget /
+    n_rays))`` slots (default S). With ``sigma_fn`` or ``alpha_fn`` every
+    slot (dead ones too) goes through the field and the visibility cull
+    clears the occluded ones; ``visible_samples_budget`` then re-selects
+    the visible samples into ``K2 = min(K, ceil(budget / n_rays))`` slots.
+    ``coarse_stride``, ``probe_dilation``, ``probe_groups`` and
+    ``exact_recheck`` are :func:`march_rays`' probe knobs;
+    ``use_pallas=True`` runs slot selection and re-selection in the CUDA
+    kernels (their plain twins on CPU tensors).
+
+    Returns :class:`PackedSamples` of ``n_rays * K`` (or ``K2``) entries,
+    ray-major; ``t_ends`` is ``t_starts + deltas``, the width that a
+    decimated slot integrates.
+    """
+    n_rays = rays_o.shape[0]
+    if alpha_fn is not None and sigma_fn is not None:
+        raise ValueError(
+            "Only one of `alpha_fn` and `sigma_fn` should be provided.")
+    if stratified and generator is None:
+        raise ValueError("stratified=True requires a torch.Generator "
+                         "`generator`.")
+    with torch.no_grad():
+        t_min, t_max = _resolve_t_range(
+            rays_o, rays_d, t_min, t_max, scene_aabb, near_plane, far_plane,
+            stratified, generator, render_step_size,
+            cone_angle=cone_angle, dt_max=dt_max,
+            max_samples_per_ray=max_samples_per_ray,
+        )
+        S = max_samples_per_ray
+        K = S if samples_budget is None else min(
+            S, max(1, -(-samples_budget // n_rays)))
+        segs = march_rays(
+            rays_o, rays_d, t_min, t_max, grid,
+            render_step_size=render_step_size, cone_angle=cone_angle,
+            max_samples_per_ray=S, slots_per_ray=K,
+            coarse_stride=coarse_stride if grid is not None else 1,
+            dt_max=dt_max, probe_dilation=probe_dilation,
+            probe_groups=probe_groups, exact_recheck=exact_recheck,
+            use_pallas=use_pallas,
+        )
+        if sigma_fn is None and alpha_fn is None:
+            return _flatten_segments(segs)
+        # the visibility cull (reference ray_marching.py:192-220)
+        from .vol_rendering import render_visibility_dense
+
+        flat = _flatten_segments(segs)
+        if sigma_fn is not None:
+            sigmas = sigma_fn(flat.t_starts, flat.t_ends, flat.ray_indices)
+            alphas = 1.0 - torch.exp(-sigmas.reshape(n_rays, K) * segs.deltas)
+        else:
+            alphas = alpha_fn(flat.t_starts, flat.t_ends,
+                              flat.ray_indices).reshape(n_rays, K)
+        vis = render_visibility_dense(alphas, segs.masks,
+                                      early_stop_eps=early_stop_eps,
+                                      alpha_thre=alpha_thre)
+        segs = segs._replace(masks=segs.masks & vis)
+        if visible_samples_budget is not None:
+            K2 = min(K, max(1, -(-visible_samples_budget // n_rays)))
+            segs = reselect_visible(segs, K2, use_pallas=use_pallas)
+        return _flatten_segments(segs)
+
+
+def _flatten_segments(segs: RaySegments) -> PackedSamples:
+    """Dense (R, K) -> flat packed (R K,) with sorted ray indices; the flat
+    ``t_ends`` is ``t_starts + deltas``, so ``sigma (t_ends - t_starts)``
+    integrates a decimated slot's whole width."""
+    return PackedSamples(
+        ray_indices=segs.ray_indices,
+        t_starts=segs.t_starts.reshape(-1, 1),
+        t_ends=(segs.t_starts + segs.deltas).reshape(-1, 1),
+        masks=segs.masks.reshape(-1),
+    )

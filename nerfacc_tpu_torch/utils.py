@@ -41,6 +41,31 @@ from .vol_rendering import (
 _PAD_DIR = np.float32(1.0) / np.float32(np.sqrt(3.0))
 
 
+def make_field_fns(field, rays_o, rays_d, timestamps=None):
+    """The reference's ``sigma_fn`` / ``rgb_sigma_fn`` closures over one
+    ray batch, for the flat packed layout: each takes ``(t_starts, t_ends,
+    ray_indices)`` with t (N, 1) and queries ``field`` at the midpoints,
+    ``field.query_density(x)`` -> (N, 1) or ``field(x, d)`` -> (rgbs,
+    sigmas). The weights live in the module. With per-ray ``timestamps``
+    (n_rays, 1) the field is time-conditioned and each sample takes its
+    ray's time, ``timestamps[ray_indices]``."""
+
+    def query(t_starts, t_ends, ray_indices, density_only):
+        ri = ray_indices.long()
+        d = rays_d[ri]
+        x = rays_o[ri] + (t_starts + t_ends) / 2.0 * d
+        t = None if timestamps is None else timestamps[ri]
+        return _query(field, x, t, d, density_only=density_only)
+
+    def sigma_fn(t_starts, t_ends, ray_indices):
+        return query(t_starts, t_ends, ray_indices, True)
+
+    def rgb_sigma_fn(t_starts, t_ends, ray_indices):
+        return query(t_starts, t_ends, ray_indices, False)
+
+    return sigma_fn, rgb_sigma_fn
+
+
 def _dense_positions(rays_o, rays_d, t_starts, t_ends):
     """Sample midpoints on the dense layout — pure broadcasting."""
     t_mid = (t_starts + t_ends) * 0.5

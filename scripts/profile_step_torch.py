@@ -107,6 +107,8 @@ def _trace_summary(path: Path, n_steps: int, unit: str = "step") -> None:
 
 def profile_config(dev, model: str, name: str, kernels: bool, batch,
                    n_steps: int, trace_dir: Path) -> None:
+    from nerfacc_tpu_torch import train_step as step
+
     if model == "ngp":
         field, grid = cs.make_ngp_scene(dev, pallas_grad=kernels)
         kw = cs._ngp_kw(kernels, cs.TRAIN_RAYS)
@@ -114,9 +116,10 @@ def profile_config(dev, model: str, name: str, kernels: bool, batch,
         field, grid = cs.make_scene(dev, use_kernel=kernels)
         kw = cs._train_kw(kernels, cs.TRAIN_RAYS)
     opt = torch.optim.Adam(field.parameters(), lr=cs.LR)
-    cs._timed_steps(field, opt, grid, batch[:3], kw)  # warm-up
+    cs._timed_steps(field, opt, grid, batch[:3], kw, step)  # warm-up
     rec = cs._timed_steps(
-        field, opt, grid, [batch[i % len(batch)] for i in range(n_steps)], kw)
+        field, opt, grid, [batch[i % len(batch)] for i in range(n_steps)], kw,
+        step)
     ms = [r[0] for r in rec]
     live = [r[2] for r in rec]
     print(f"{model} {name}: step median {statistics.median(ms):.3f} ms (min "
@@ -127,7 +130,7 @@ def profile_config(dev, model: str, name: str, kernels: bool, batch,
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
-        cs._timed_steps(field, opt, grid, batch[:PROFILED_STEPS], kw)
+        cs._timed_steps(field, opt, grid, batch[:PROFILED_STEPS], kw, step)
     prof.export_chrome_trace(str(trace))
     _trace_summary(trace, PROFILED_STEPS)
 

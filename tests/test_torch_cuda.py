@@ -924,3 +924,123 @@ def test_proposal_step_on_card_matches_cpu(cuda_device, unbounded, fixed):
     print(f"proposal step card vs CPU (unbounded {unbounded}, fixed "
           f"{fixed}): largest gradient L2 error {max(errs.values()):.3e}")
     assert max(errs.values()) <= (1e-2 if fixed else 5e-2), errs
+
+
+# The flat packed API on the card against the same calls on the CPU. The
+# scans are the same elementwise adds and products in the same order on
+# both devices: within 1e-6 relative. Segment sums add in atomic order on
+# the card and exp rounds in its own way there: the renders within rtol
+# 1e-5 / atol 1e-6. Integer outputs bit-equal.
+FLAT_R, FLAT_K = 16384, 64
+
+
+def _flat_inputs(device, ragged):
+    rng = np.random.RandomState(11)
+    t = np.sort(rng.rand(FLAT_R, FLAT_K + 1).astype(np.float32), axis=1)
+    sig = (rng.rand(FLAT_R, FLAT_K) * 20.0).astype(np.float32)
+    rgb = rng.rand(FLAT_R * FLAT_K, 3).astype(np.float32)
+    mask = rng.rand(FLAT_R, FLAT_K) < (0.5 if ragged else 1.1)
+    ri = np.repeat(np.arange(FLAT_R, dtype=np.int32), FLAT_K)
+    arrs = dict(ts=t[:, :-1].reshape(-1, 1), te=t[:, 1:].reshape(-1, 1),
+                sig=sig.reshape(-1, 1), rgb=rgb, ri=ri,
+                mask=mask.reshape(-1))
+    return {k: torch.as_tensor(v, device=device) for k, v in arrs.items()}
+
+
+def _flat_render(x, n_rays, segmented):
+    import nerfacc_tpu_torch.vol_rendering as pvr
+    from nerfacc_tpu_torch import rendering
+
+    pvr.DENSE_BRIDGE = not segmented
+    try:
+        sig = x["sig"].clone().requires_grad_()
+        out = rendering(x["ts"], x["te"], x["ri"], n_rays,
+                        rgb_sigma_fn=lambda a, b, r: (x["rgb"], sig),
+                        render_bkgd=torch.ones(3, device=sig.device),
+                        masks=x["mask"])
+        out[0].sum().backward()
+    finally:
+        pvr.DENSE_BRIDGE = True
+    return [o.detach().cpu() for o in out] + [sig.grad.cpu()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [False, True])
+def test_flat_scans_and_rendering_on_card_match_cpu(cuda_device, segmented):
+    from nerfacc_tpu_torch import scan
+
+    cpu = torch.device("cpu")
+    xc, xh = _flat_inputs(cuda_device, True), _flat_inputs(cpu, True)
+    for name in ("exclusive_segment_cumsum", "reverse_exclusive_segment_cumsum",
+                 "exclusive_segment_cumprod"):
+        fn = getattr(scan, name)
+        v = 1.0 - xc["sig"][:, 0] * 0.01
+        got = fn(v, xc["ri"], FLAT_R).cpu()
+        want = fn(v.cpu(), xh["ri"], FLAT_R)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    got = scan.segment_sum(xc["rgb"], xc["ri"], FLAT_R).cpu()
+    torch.testing.assert_close(
+        got, scan.segment_sum(xh["rgb"], xh["ri"], FLAT_R),
+        rtol=1e-5, atol=1e-6)
+    for a, b in zip(_flat_render(xc, FLAT_R, segmented),
+                    _flat_render(xh, FLAT_R, segmented)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pack_and_unpack_on_card_are_bit_equal_to_cpu(cuda_device):
+    from nerfacc_tpu_torch import pack_data, pack_info, unpack_info
+
+    cpu = torch.device("cpu")
+    outs = []
+    for device in (cuda_device, cpu):
+        x = _flat_inputs(device, True)
+        data = torch.cat([x["ts"], x["te"]], 1).reshape(FLAT_R, FLAT_K, 2)
+        mask = x["mask"].reshape(FLAT_R, FLAT_K)
+        packed, info, valid = pack_data(data, mask)
+        ri = unpack_info(info, packed.shape[0])
+        cut = pack_data(data, mask, FLAT_R * 20)  # past the capacity
+        outs.append([t.cpu() for t in (packed, info, valid, ri,
+                                       pack_info(ri, FLAT_R, valid), *cut)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ray_marching_kernels_on_the_trained_grid(cuda_device):
+    # ray_marching(use_pallas=True) on the trained 128^3 grid (K5, then K6
+    # after an analytic cull) against the unfused march: masks bit-equal
+    from pathlib import Path
+
+    from nerfacc_tpu_torch import ray_marching
+
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    asset = np.load(Path(__file__).resolve().parents[1] / "bench_assets"
+                    / "trained_grid.npz")
+    grid = grid_from_arrays(aabb, asset["binary"], asset["occs"],
+                            device=cuda_device)
+    rng = np.random.RandomState(12)
+    o = rng.randn(4096, 3)
+    o = 3.2 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.randn(4096, 3) * 0.5
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.as_tensor(a.astype(np.float32), device=cuda_device)
+            for a in (o, d))
+
+    def sigma_fn(ts, te, ri):
+        x = o[ri.long()] + (ts + te) / 2.0 * d[ri.long()]
+        return torch.where((x * x).sum(-1, keepdim=True) < 0.8, 30.0, 0.5)
+
+    kw = dict(scene_aabb=aabb, grid=grid, sigma_fn=sigma_fn,
+              render_step_size=5e-3, max_samples_per_ray=1024,
+              samples_budget=4096 * 48, visible_samples_budget=4096 * 24,
+              coarse_stride=16, probe_dilation=2, probe_groups=32)
+    n5, n6 = fused_select_grouped.launches, fused_reselect.launches
+    a = ray_marching(o, d, use_pallas=True, **kw)
+    assert (fused_select_grouped.launches - n5,
+            fused_reselect.launches - n6) == (1, 1)
+    b = ray_marching(o, d, use_pallas=False, **kw)
+    assert torch.equal(a.masks, b.masks) and int(a.masks.sum()) > 10000
+    assert torch.equal(a.ray_indices, b.ray_indices)
+    for x, y in ((a.t_starts, b.t_starts), (a.t_ends, b.t_ends)):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)

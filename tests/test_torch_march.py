@@ -20,14 +20,14 @@ import torch
 import nerfacc_tpu as jx
 import nerfacc_tpu.vol_rendering as jvr
 import nerfacc_tpu_torch as pt
-import nerfacc_tpu_torch.ray_marching as prm
 import nerfacc_tpu_torch.vol_rendering as pvr
 from nerfacc_tpu_torch.convert import grid_from_arrays
 
 torch.set_num_threads(1)
 
-# the JAX package exports a function of the same name as this module
+# both packages export a function of the same name as this module
 jrm = importlib.import_module("nerfacc_tpu.ray_marching")
+prm = importlib.import_module("nerfacc_tpu_torch.ray_marching")
 
 AABB = (-1.0, -1.0, -1.0, 1.0, 1.0, 1.0)
 

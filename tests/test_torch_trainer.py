@@ -32,7 +32,18 @@ Inputs come from numpy seeds; both packages render the same tiny views
 - one NGP step against the JAX trainer's ``loss_fn`` (field budget and
   two-stage cull on, stratified jitter off): the loss rtol 1e-5, the
   gradients within ``test_torch_hash.py``'s bounds (table rtol 1e-4 / atol
-  1e-6, the f32 heads rtol 1e-4 / atol 1e-5 of the largest |gradient|).
+  1e-6, the f32 heads rtol 1e-4 / atol 1e-5 of the largest |gradient|);
+- 32 NGP steps against the JAX trainer's step (Adam, grid update every 16
+  steps, the JAX draws of cells, jitter and stratified jitter given to
+  the port): the first 4 losses rtol 1e-5 (the one-step bound; measured
+  up to 7.8e-7), every loss rtol 2e-3 (measured up to 6.1e-4 at step 30:
+  from 3e-7 at step 1 the difference grows about twofold every four
+  steps, as Adam at eps 1e-15 scales each gradient entry by its own
+  running size and so turns rounding-level differences of small entries
+  into steps of the learning rate's size), the live samples equal; the
+  grid's occupancies rtol 1e-2 after 16 steps (measured 3.4e-3) and a
+  binary bit different only within that band of the threshold (measured:
+  none differ).
 """
 
 import importlib.util
@@ -1144,6 +1155,146 @@ def test_ngp_step_matches_the_jax_loss_fn(trainer, jax_trainer, monkeypatch):
         atol = 1e-6 if name == "encoder.table" else 1e-5 * scale
         np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-4,
                                    atol=atol, err_msg=name)
+
+
+# the NGP trajectory against the JAX trainer (see the module docstring)
+NGP_TRAJECTORY_STEPS = 32
+NGP_EARLY_STEPS, NGP_EARLY_RTOL = 4, 1e-5
+NGP_TRAJECTORY_RTOL, NGP_OCC_RTOL = 2e-3, 1e-2
+
+
+def test_ngp_trajectory_matches_the_jax_trainer(trainer, jax_trainer,
+                                                monkeypatch):
+    """NGP_TRAJECTORY_STEPS steps of the port's NGP ``Trainer`` against the
+    JAX trainer's ``train_step`` composition (examples/train_ngp_nerf.py:
+    480-530, optax Adam at eps 1e-15 under the cosine schedule) from the
+    same converted weights, on the same batches, with the grid update every
+    16 steps and the stratified jitter both drawn by JAX and given to the
+    port (the grid update's cells and jitter through ``_update_grid_at``,
+    the jitter through the port's t-range). The first NGP_EARLY_STEPS
+    losses within the one-step bound, every loss within
+    NGP_TRAJECTORY_RTOL and the live samples equal; after each grid update
+    the occupancies within NGP_OCC_RTOL and a binary bit different only
+    within that band of the threshold."""
+    import nerfacc_tpu as jx
+    import nerfacc_tpu_torch.utils as port_utils
+    from nerfacc_tpu.models import NGPRadianceField as JaxNGP
+    from nerfacc_tpu.utils import render_rays as jax_render_rays
+    from nerfacc_tpu_torch.convert import ngp_from_flax
+    from nerfacc_tpu_torch.grid import _update_grid_at
+
+    steps = NGP_TRAJECTORY_STEPS
+    t = trainer.Trainer(trainer.parse_args(
+        TINY_NGP + ["--max_steps", str(steps)]))
+    args = t.args
+    aabb = tuple(float(v) for v in t.scene.aabb)
+    jfield = JaxNGP(aabb=aabb, n_levels=4, log2_hashmap_size=10,
+                    n_features=2)
+    params = jfield.init(jax.random.PRNGKey(5), jnp.zeros((8, 3)),
+                         jnp.zeros((8, 3)))
+    params = jax.tree_util.tree_map(np.asarray, params)
+    rng = np.random.RandomState(14)
+    params["params"]["encoder"]["table"] = (rng.randn(
+        params["params"]["encoder"]["table"].shape[0]) * 0.5).astype(
+        np.float32)
+    ngp_from_flax(params, t.field)
+    params = jax.tree_util.tree_map(jnp.asarray, params)
+    jgrid = jx.create_grid(jnp.asarray(aabb), resolution=16)
+    assert torch.equal(t.grid.binary.cpu(),
+                       torch.as_tensor(np.array(jgrid.binary)))
+    sched = (optax.cosine_decay_schedule(args.lr, steps, 0.1)
+             if args.lr_decay else args.lr)
+    opt = optax.adam(sched, eps=1e-15)
+    opt_state = opt.init(params)
+    kw = dict(t.render_kwargs, scene_aabb=jnp.asarray(aabb))
+    step_size = t.step_size
+
+    @jax.jit
+    def jstep(p, s, grid, o, d, px, key):
+        def loss_fn(p):
+            colors, opacities, _, n, _ = jax_render_rays(
+                p, jfield, o, d, grid=grid, render_bkgd=jnp.ones(3),
+                stratified=True, key=key, return_extras=True, **kw)
+            per_ray = jax_trainer.huber(colors, px).mean(-1)
+            alive = (opacities[:, 0] > 0).astype(jnp.float32)
+            return (per_ray * alive).sum() / jnp.maximum(alive.sum(),
+                                                         1.0), n
+
+        (loss, n), g = jax.value_and_grad(loss_fn, has_aux=True)(p)
+        up, s = opt.update(g, s, p)
+        return optax.apply_updates(p, up), s, loss, n
+
+    def occ_j(p):
+        return lambda x: jfield.apply(p, x, method=jfield.query_density) * (
+            step_size)
+
+    # the port draws through these two; the test hands them JAX's draws
+    drawn = {}
+
+    def fake_update_grid(grid, generator, step, occ_eval_fn, occ_thre,
+                         ema_decay, adaptive_thre):
+        warmup = step < 256
+        return _update_grid_at(grid, drawn["cells"], drawn["jitter"],
+                               occ_eval_fn, occ_thre=occ_thre,
+                               ema_decay=ema_decay,
+                               adaptive_thre=adaptive_thre or warmup)
+
+    resolve = port_utils._resolve_t_range
+
+    def fake_resolve(rays_o, rays_d, t_min, t_max, aabb_, near, far,
+                     stratified, generator, step_, **kws):
+        lo, hi = resolve(rays_o, rays_d, t_min, t_max, aabb_, near, far,
+                         False, None, step_, **kws)
+        if stratified:
+            lo = lo + drawn["u"] * step_
+        return lo, hi
+
+    monkeypatch.setattr(trainer, "update_grid", fake_update_grid)
+    monkeypatch.setattr(port_utils, "_resolve_t_range", fake_resolve)
+
+    key = jax.random.PRNGKey(21)
+    got, want = [], []
+    for step in range(steps):
+        key, k_grid, k_render = jax.random.split(key, 3)
+        if step % 16 == 0:
+            jgrid = jx.update_grid(
+                jgrid, k_grid, step=0 if step < 256 else 10**9,
+                occ_eval_fn=occ_j(params), occ_thre=1e-2,
+                ema_decay=args.occ_ema_decay,
+                adaptive_thre=not args.fixed_occ_thre)
+            k_sel, k_jit = jax.random.split(k_grid)
+            cells = jnp.arange(jgrid.num_cells)
+            drawn["cells"] = torch.as_tensor(np.array(cells))
+            drawn["jitter"] = torch.as_tensor(np.array(
+                jax.random.uniform(k_jit, (cells.shape[0], 3))))
+            t.update_grid(step)
+            occs = np.asarray(jgrid.occs)
+            np.testing.assert_allclose(t.grid.occs.numpy(), occs,
+                                       rtol=NGP_OCC_RTOL, atol=1e-9,
+                                       err_msg=f"step {step}")
+            thre = min(float(occs.mean()), 1e-2)
+            flips = (t.grid.binary.numpy().reshape(-1)
+                     != np.asarray(jgrid.binary).reshape(-1))
+            assert np.all(np.abs(occs[flips] - thre)
+                          <= NGP_OCC_RTOL * thre), (step, int(flips.sum()))
+        rays, pixels = t.scene.sample_batch(args.num_rays)
+        drawn["u"] = torch.as_tensor(np.array(jax.random.uniform(
+            k_render, (args.num_rays,))))
+        loss_t, n_t, _ = t.train_step(rays.origins, rays.viewdirs, pixels,
+                                      step)
+        params, opt_state, loss_j, n_j = jstep(
+            params, opt_state, jgrid,
+            *(jnp.asarray(a.numpy()) for a in (rays.origins, rays.viewdirs,
+                                                pixels)), k_render)
+        got.append((float(loss_t), int(n_t)))
+        want.append((float(loss_j), int(n_j)))
+    losses = np.asarray([g[0] for g in got])
+    losses_j = np.asarray([w[0] for w in want])
+    np.testing.assert_allclose(losses[:NGP_EARLY_STEPS],
+                               losses_j[:NGP_EARLY_STEPS], rtol=NGP_EARLY_RTOL)
+    np.testing.assert_allclose(losses, losses_j, rtol=NGP_TRAJECTORY_RTOL)
+    assert [g[1] for g in got] == [w[1] for w in want]
+    assert got[-1][0] < got[0][0]
 
 
 @pytest.mark.parametrize("unbounded", [False, True])

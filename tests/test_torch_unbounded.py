@@ -46,7 +46,6 @@ from nerfacc_tpu.datasets import procedural as jax_procedural
 from nerfacc_tpu.models import TensoCPRadianceField as JaxTensoCP
 from nerfacc_tpu.utils import render_rays as jax_render_rays
 import nerfacc_tpu_torch as pt
-import nerfacc_tpu_torch.ray_marching as prm
 from nerfacc_tpu_torch import ContractionType, render_rays
 from nerfacc_tpu_torch.convert import grid_from_arrays, tensocp_from_flax
 from nerfacc_tpu_torch.datasets import Procedural360Scene, procedural
@@ -55,8 +54,9 @@ from nerfacc_tpu_torch.models import TensoCPRadianceField
 
 torch.set_num_threads(1)
 
-# the JAX package exports a function of the same name as this module
+# both packages export a function of the same name as this module
 jrm = importlib.import_module("nerfacc_tpu.ray_marching")
+prm = importlib.import_module("nerfacc_tpu_torch.ray_marching")
 
 CPU = torch.device("cpu")
 AABB = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
