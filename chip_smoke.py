@@ -142,6 +142,26 @@ Phases (any failed check raises, and the script exits nonzero):
     step's ms and live samples), then each of those kernels against its
     twin on the inputs the five steps gave it (K1 at 786,432 points in the
     cull, K2 / K4 at 393,216), reported as the path "flat train".
+17. The on-disk datasets, in a temporary directory the phase removes: the
+    native ray-batch assembler builds (``data_io.lib()``, its seconds);
+    blender, D-NeRF and COLMAP fixtures written on the card, each read by
+    its loader, whose rays re-rendered through the analytic field must
+    match the loaded pixels (``tests/test_e2e_dataset.py``'s bounds, mean
+    0.01 and max 0.1, on the test views and on one ``sample_batch``).
+    Then three trainers through ``--data_root``: the TensoCP drill
+    (``scripts/run_realdata_drill_torch.py``: 96x96, 24 train views, 1,000
+    steps, the flagship field's default levels, the kernels; floor 25.0),
+    D-NeRF on the 48x48, 12-view fixture (floor 16.0, no kernel) and the
+    grid-unbounded TensoCP on the 16-image COLMAP fixture with the kernels
+    (floor 13.0), each kernel of a drive held to its twin on the drive's
+    inputs. Last the full-protocol fixture
+    (``scripts/run_fullprotocol_gate_torch.py``: 800x800, 100 + 8 views
+    over the upper hemisphere), written on the card and loaded whole (its
+    seconds and its bytes on disk, in host memory and on the card; one
+    view re-written Paeth-filtered, its read timed), then 50 steps of the
+    hash-NGP trainer with the kernels at 2^18-sample batches (K5, K6 and
+    K7 must launch, no PSNR floor): ms per step, live samples per step,
+    and ms per batch for the native assembly, the upload and both.
 Each drive prints its PSNR per view, loop seconds, live samples and
 samples/s, and the launches per kernel.
 
@@ -1891,19 +1911,23 @@ def load_example(script: str):
 
 
 def run_drive(dev, path: str, trainer, argv, floor: float,
-              must_launch=()) -> tuple:
-    """A trainer script's ``main`` on ``argv``, with every launch count
-    set to 0 just before and read just after: each kernel of
-    ``must_launch`` must launch and no other; the held-out PSNR must reach
-    ``floor`` and the field budget drop nothing. Then each kernel of
-    ``must_launch`` against its twin on the inputs the run gave it.
-    Returns the run's launch counts, those checks and the run's
-    ``Trainer``."""
+              must_launch=(), made=None) -> tuple:
+    """A trainer script's ``main`` on ``argv`` (training ``made``, a
+    ``Trainer`` of ``argv``, where given), with every launch count set to
+    0 just before and read just after: each kernel of ``must_launch`` must
+    launch and no other; the held-out PSNR must reach ``floor`` and the
+    field budget drop nothing. Then each kernel of ``must_launch`` against
+    its twin on the inputs the run gave it. Returns the run's launch
+    counts, those checks and the run's ``Trainer``, with the run's numbers
+    as its ``last_run``."""
+    run = ((lambda: trainer.main(list(argv))) if made is None
+           else (lambda: trainer.main(list(argv), trainer=made)))
     with recording(must_launch) as recorders:
         out, counts = drive(
-            path, lambda: trainer.main(list(argv)), must_launch,
+            path, run, must_launch,
             [k for k in kernel_counters() if k not in must_launch])
     t = out.pop("trainer")
+    t.last_run = out
     launched = ", ".join(f"{KERNEL_TAGS[k]} {n}" for k, n in counts.items()
                          if n) or "none"
     print(f"{path}: PSNR {out['psnr']:.4f} per view "
@@ -2452,6 +2476,287 @@ def phase_flat(dev) -> dict:
     return paths, inputs
 
 
+# Phase 17: the on-disk datasets. The loader oracle's bounds
+# (tests/test_e2e_dataset.py: PNG quantisation and the alpha
+# recomposition); the drives' floors: the JAX drill's threshold 25.0 for
+# the TensoCP drill, and the JAX package's e2e floors for D-NeRF (16.0)
+# and the unbounded COLMAP run (13.0), at their flags.
+ORACLE_MEAN, ORACLE_MAX = 0.01, 0.1
+DISK_DRILL_PSNR_FLOOR, DISK_DNERF_PSNR_FLOOR, DISK_360_PSNR_FLOOR = (
+    25.0, 16.0, 13.0)
+DISK_FIXTURE = 48  # pixels per side of the oracle, D-NeRF and COLMAP
+DISK_DNERF = ("--scene", "procedural", "--max_steps", "300",
+              "--num_rays", "512", "--grid_resolution", "32",
+              "--max_samples_per_ray", "256", "--render_step_size", "0.02",
+              "--samples_budget", "16384", "--test_chunk_size", "1152",
+              "--eval_views", "1")
+DISK_360 = ("--scene", "procedural360", "--dataset", "360", "--unbounded",
+            "--factor", "1", "--max_steps", "200", "--num_rays", "256",
+            "--grid_resolution", "64", "--far_plane", "30",
+            "--max_samples_per_ray", "1024", "--samples_budget", "16384",
+            "--visible_samples_budget", "8192", "--test_chunk_size", "1152",
+            "--eval_views", "1", "--levels", "32x16,128x32")
+PROTOCOL_SIZE, PROTOCOL_TRAIN, PROTOCOL_TEST = 800, 100, 8
+PROTOCOL_STEPS, BATCH_TIMINGS = 50, 20
+
+
+def _oracle(name, want, got, max_bound=True) -> None:
+    """The loaded pixels against the field's render at the loader's
+    rays."""
+    err = (want - got).abs()
+    mean, worst = float(err.mean()), float(err.max())
+    print(f"loader oracle, {name}: mean abs err {mean:.2e}, max {worst:.2e}"
+          f" (bounds {ORACLE_MEAN}, {ORACLE_MAX if max_bound else '-'})")
+    if not mean < ORACLE_MEAN or (max_bound and not worst < ORACLE_MAX):
+        raise AssertionError(f"loader oracle, {name}: the loader's rays do "
+                             "not reproduce the loaded pixels")
+
+
+def check_loader_oracles(dev, tmp: Path) -> dict:
+    """Blender, D-NeRF and COLMAP fixtures written on the card, each read
+    by its loader on the card and held to the analytic field at the
+    loader's own rays: every test view, and one ``sample_batch``. Returns
+    the fixtures' roots by kind (the D-NeRF and COLMAP drives train on
+    them)."""
+    from nerfacc_tpu_torch.datasets import (
+        dnerf_synthetic,
+        fixtures,
+        nerf_360_v2,
+        nerf_synthetic,
+    )
+    from nerfacc_tpu_torch.datasets.procedural import (
+        render_gt,
+        render_gt_dynamic,
+        render_gt_env,
+    )
+
+    S = DISK_FIXTURE
+    roots = {k: tmp / k for k in ("blender", "dnerf", "colmap")}
+    fixtures.write_blender_fixture(roots["blender"], n_train=6, n_val=2,
+                                   n_test=3, width=S, height=S, device=dev)
+    fixtures.write_blender_fixture(roots["dnerf"], n_train=12, n_val=0,
+                                   n_test=3, width=S, height=S, dynamic=True,
+                                   device=dev)
+    fixtures.write_colmap_fixture(roots["colmap"], n_images=16, width=S,
+                                  height=S, device=dev)
+    white = torch.ones(3, device=dev)
+
+    test = nerf_synthetic.SubjectLoader("procedural", str(roots["blender"]),
+                                        split="test", device=dev)
+    for i in range(test.test_poses.shape[0]):
+        rays = test.rays_for_view(test.test_poses[i])
+        _oracle(f"blender test view {i}",
+                render_gt(rays.origins, rays.viewdirs, white).reshape(S, S, 3),
+                test.test_images[i])
+    train = nerf_synthetic.SubjectLoader("procedural", str(roots["blender"]),
+                                         color_bkgd_aug="random", seed=3,
+                                         device=dev)
+    rays, pixels = train.sample_batch(4096)
+    _oracle("blender sample_batch (native, random background)",
+            render_gt(rays.origins, rays.viewdirs, train.bkgd), pixels,
+            max_bound=False)
+
+    test = dnerf_synthetic.SubjectLoader("procedural", str(roots["dnerf"]),
+                                         split="test", device=dev)
+    for i in range(test.test_poses.shape[0]):
+        rays = test.rays_for_view(test.test_poses[i])
+        t = torch.full((S * S, 1), float(test.timestamps[i]), device=dev)
+        _oracle(f"D-NeRF test view {i} (t {float(test.timestamps[i]):.2f})",
+                render_gt_dynamic(rays.origins, rays.viewdirs, white,
+                                  t).reshape(S, S, 3),
+                test.test_images[i], max_bound=False)
+    train = dnerf_synthetic.SubjectLoader("procedural", str(roots["dnerf"]),
+                                          device=dev)
+    rays, pixels, t = train.sample_batch(4096)
+    _oracle("D-NeRF sample_batch",
+            render_gt_dynamic(rays.origins, rays.viewdirs, train.bkgd, t),
+            pixels, max_bound=False)
+
+    raw = fixtures.opencv_circle_poses(16, radius=3.2)
+    center = torch.as_tensor(raw[:, :, 3].mean(axis=0), device=dev)
+    scale = 1.0 / max(float(np.abs(raw[:, :, 3] - raw[:, :, 3].mean(
+        axis=0)).max()), 1e-6)
+    for split in ("test", "train"):
+        loader = nerf_360_v2.SubjectLoader(
+            "procedural360", str(roots["colmap"]), split=split, factor=1,
+            device=dev)
+        rays = loader.rays_for_view(loader.test_poses[0])
+        _oracle(f"COLMAP {split} view 0",
+                render_gt_env(rays.origins / scale + center,
+                              rays.viewdirs).reshape(S, S, 3),
+                loader.images[0], max_bound=False)
+        rays, pixels = loader.sample_batch(4096)
+        _oracle(f"COLMAP {split} sample_batch",
+                render_gt_env(rays.origins / scale + center, rays.viewdirs),
+                pixels, max_bound=False)
+    return roots
+
+
+def _tree_bytes(root: Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def time_batches(scene, num_rays: int) -> dict:
+    """The blender loader's batch on the host clock, each ending in a
+    synchronise: the native assembly into a page-locked buffer alone, its
+    upload alone, and ``sample_batch`` (both, with the draws); medians of
+    BATCH_TIMINGS, ms."""
+    from nerfacc_tpu_torch import data_io
+
+    buf = torch.empty((3, num_rays, 3), dtype=torch.float32, pin_memory=True)
+    out = tuple(buf.numpy())
+    bkgd = np.ones(3, np.float32)
+
+    def assemble():
+        data_io.sample_ray_batch(scene._images_np, scene._poses_np,
+                                 scene._intrin_np, bkgd, seed=5,
+                                 num_rays=num_rays, out=out)
+
+    def upload():
+        buf.to(scene.device, non_blocking=True)
+        torch.cuda.synchronize()
+
+    def batch():
+        scene.sample_batch(num_rays)
+        torch.cuda.synchronize()
+
+    times = {}
+    for name, fn in (("assembly", assemble), ("upload", upload),
+                     ("sample_batch", batch)):
+        fn()
+        ms = []
+        for _ in range(BATCH_TIMINGS):
+            t0 = time.perf_counter()
+            fn()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        times[name] = statistics.median(ms)
+    return times
+
+
+def phase_protocol(dev, tmp: Path) -> tuple:
+    """The full-protocol fixture written on the card and loaded whole
+    (seconds and bytes), a Paeth-filtered view's read, then PROTOCOL_STEPS
+    hash-NGP steps through the blender loader at the protocol's 2^18-sample
+    batches with the kernels (K5, K6, K7): ms per step, live samples per
+    step, and the batch's host cost beside them. Returns the run's launch
+    counts and the kernels' checks on its inputs."""
+    _scripts()
+    import run_fullprotocol_gate_torch as gate
+
+    from nerfacc_tpu_torch.datasets import image_io
+
+    root = tmp / "protocol"
+    t0 = time.perf_counter()
+    gate.write_fixture(root, PROTOCOL_SIZE, PROTOCOL_TRAIN, PROTOCOL_TEST,
+                       device=dev)
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+    disk = _tree_bytes(root)
+    view = root / gate.SUBJECT / "train" / "r_0.png"
+    paeth = tmp / "paeth.png"
+    image_io.imwrite(paeth, image_io.imread(view),
+                     filters=np.full(PROTOCOL_SIZE, 4))
+    read_ms = {}
+    for name, path in (("Up (the port's writer)", view), ("Paeth", paeth)):
+        image_io.imread(path)
+        t1 = time.perf_counter()
+        for _ in range(3):
+            image_io.imread(path)
+        read_ms[name] = 1e3 * (time.perf_counter() - t1) / 3
+    print(f"protocol fixture: {PROTOCOL_TRAIN} + {PROTOCOL_TEST} views at "
+          f"{PROTOCOL_SIZE}x{PROTOCOL_SIZE} written in {write_s:.3f} s, "
+          f"{disk} bytes on disk; one {PROTOCOL_SIZE}x{PROTOCOL_SIZE} RGBA "
+          "PNG read in "
+          + ", ".join(f"{v:.1f} ms {k}" for k, v in read_ms.items())
+          + f"  [{smi_line()}]")
+
+    module = load_example("train_ngp_nerf_torch")
+    argv = [*gate.protocol_argv(root, "ngp", PROTOCOL_STEPS, eval_views=1),
+            "--seed", str(TRAINER_SEED)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    made = module.Trainer(module.parse_args(argv))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    scene = made.scene
+    host = scene._images_np.nbytes + scene._poses_np.nbytes
+    card = sum(t.numel() * t.element_size() for t in (
+        scene.images, scene.test_images, scene.train_poses, scene.test_poses))
+    print(f"protocol fixture loaded (train and test splits, field and grid "
+          f"made) in {load_s:.3f} s: {host} bytes in host memory, {card} "
+          f"bytes on the card  [{smi_line()}]")
+
+    path = "NGP trainer on the protocol fixture"
+    counts, found, t = run_drive(
+        dev, path, module, argv, 0.0,
+        ("fused_select_grouped", "fused_reselect",
+         "hash_grad_scatter_levels"), made=made)
+    batch = time_batches(scene, t.args.num_rays)
+    print(f"{path}: {t.last_run['loop_s'] / PROTOCOL_STEPS * 1e3:.3f} ms per "
+          f"step (the loop over {PROTOCOL_STEPS} steps, grid updates and "
+          f"batches included), {t.last_run['samples'] / PROTOCOL_STEPS:.0f} "
+          f"live samples per step; a batch of {t.args.num_rays} rays: "
+          f"native assembly {batch['assembly']:.3f} ms, upload "
+          f"{batch['upload']:.3f} ms, sample_batch {batch['sample_batch']:.3f}"
+          f" ms  [{smi_line()}]")
+    return counts, found
+
+
+def phase_datasets(dev) -> tuple:
+    """Phase 17 (see the module docstring). Returns the launch counts per
+    path and the kernels' checks on the drives' inputs, merged per
+    kernel."""
+    import tempfile
+
+    from nerfacc_tpu_torch import data_io
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    if data_io.lib() is None:
+        raise AssertionError("the native ray-batch assembler did not build")
+    print(f"native assembler: {time.perf_counter() - t0:.2f} s to build and "
+          f"load -> {data_io.library_path().relative_to(ROOT)}")
+    _scripts()
+    import run_realdata_drill_torch as drill
+
+    seed = ("--seed", str(TRAINER_SEED))
+    cp = ("cp_level_features", "cp_level_features_res", "cp_level_grads_res",
+          "fused_select_grouped", "fused_reselect")
+    paths, inputs = {}, {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        roots = check_loader_oracles(dev, tmp)
+        drill.write_fixture(tmp / "drill", device=dev)
+        drives = (
+            ("TensoCP drill on disk", "train_ngp_nerf_torch",
+             [*drill.drill_argv(tmp / "drill"), *seed],
+             DISK_DRILL_PSNR_FLOOR, cp),
+            ("D-NeRF trainer on disk", "train_mlp_dnerf_torch",
+             [*DISK_DNERF, "--data_root", str(roots["dnerf"]), *seed],
+             DISK_DNERF_PSNR_FLOOR, ()),
+            ("grid-unbounded trainer on COLMAP", "train_ngp_nerf_torch",
+             [*DISK_360, "--data_root", str(roots["colmap"]),
+              "--use_kernel", "--fused_march", *seed],
+             DISK_360_PSNR_FLOOR, cp),
+        )
+        for path, script, argv, floor, kernels in drives:
+            paths[path], found, t = run_drive(dev, path, load_example(script),
+                                              argv, floor, kernels)
+            for name, rows in found.items():
+                inputs.setdefault(name, []).extend(rows)
+            del t
+            torch.cuda.empty_cache()
+        path = "NGP trainer on the protocol fixture"
+        paths[path], found = phase_protocol(dev, tmp)
+        for name, rows in found.items():
+            inputs.setdefault(name, []).extend(rows)
+    torch.cuda.empty_cache()
+    print(f"phase 17 (the on-disk datasets): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return paths, inputs
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2464,10 +2769,10 @@ def main() -> None:
     paths.update(phase_gather_script(dev))
     trainer_counts, trainer_inputs = phase_trainers(dev)
     paths.update(trainer_counts)
-    flat_counts, flat_inputs = phase_flat(dev)
-    paths.update(flat_counts)
-    for name, rows in flat_inputs.items():
-        trainer_inputs.setdefault(name, []).extend(rows)
+    for counts, found in (phase_flat(dev), phase_datasets(dev)):
+        paths.update(counts)
+        for name, rows in found.items():
+            trainer_inputs.setdefault(name, []).extend(rows)
     for entry in report:
         if entry["name"] in trainer_inputs:
             rows = trainer_inputs[entry["name"]]

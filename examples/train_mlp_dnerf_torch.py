@@ -1,5 +1,6 @@
 """Train a D-NeRF (time-conditioned deformation) field on the moving
-procedural scene with nerfacc_tpu_torch (PyTorch on the card).
+procedural scene or an on-disk D-NeRF dataset with nerfacc_tpu_torch
+(PyTorch on the card).
 
 The twin of ``examples/train_mlp_dnerf.py``: its flags and defaults, the
 D-NeRF field (a warp MLP of the point's and the time's encodings in front
@@ -14,9 +15,10 @@ a white background. The drive:
     python examples/train_mlp_dnerf_torch.py --max_steps 2000 \\
       --image_size 96
 
-It runs on the CUDA device unless ``--device cpu`` is given. The on-disk
-D-NeRF dataset (``--data_root``) is not ported yet and raises
-``NotImplementedError``.
+It runs on the CUDA device unless ``--device cpu`` is given. A given
+``--data_root`` always trains through the D-NeRF loader (the subject
+``--scene`` under it), with its test split's views and times for the
+evaluation, as the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch  # noqa: E402
 from nerfacc_tpu_torch import create_grid, render_image, render_rays  # noqa: E402
 from nerfacc_tpu_torch import update_grid  # noqa: E402
 from nerfacc_tpu_torch.datasets import ProceduralDynamicScene  # noqa: E402
+from nerfacc_tpu_torch.datasets import dnerf_synthetic  # noqa: E402
 from nerfacc_tpu_torch.models import DNeRFRadianceField  # noqa: E402
 from nerfacc_tpu_torch.training import (  # noqa: E402
     hit_ray_loss,
@@ -46,6 +49,24 @@ from nerfacc_tpu_torch.training import (  # noqa: E402
 DRIVE = ("--max_steps", "2000", "--image_size", "96")
 # points and times per step of the warp penalties
 WARP_REG_POINTS = 1024
+
+
+def make_scene(args, device):
+    """The moving procedural scene where no ``--data_root`` is given, else
+    the D-NeRF loader of ``--scene`` under it, whose test split's poses,
+    images and times replace the train loader's."""
+    if args.data_root is None:
+        if args.scene != "procedural":
+            raise ValueError(f"--scene {args.scene} needs --data_root")
+        return ProceduralDynamicScene(
+            width=args.image_size, height=args.image_size,
+            n_views=args.train_views, device=device)
+    kw = dict(subject_id=args.scene, root_fp=args.data_root, device=device)
+    scene = dnerf_synthetic.SubjectLoader(split="train", **kw)
+    test = dnerf_synthetic.SubjectLoader(split="test", **kw)
+    scene.test_poses, scene.test_images = test.test_poses, test.test_images
+    scene.test_timestamps = test.timestamps
+    return scene
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -101,15 +122,9 @@ class Trainer:
     and its training step."""
 
     def __init__(self, args: argparse.Namespace):
-        if args.scene != "procedural" or args.data_root is not None:
-            raise NotImplementedError(
-                "only the procedural scene is ported: the D-NeRF dataset is "
-                "ROADMAP.md Queue 1 item 12")
         self.args = args
         dev = self.device = torch.device(args.device)
-        self.scene = ProceduralDynamicScene(
-            width=args.image_size, height=args.image_size,
-            n_views=args.train_views, device=dev)
+        self.scene = make_scene(args, dev)
         aabb = tuple(float(v) for v in self.scene.aabb.cpu())
         self.field = DNeRFRadianceField(
             warp_depth=args.warp_depth, warp_width=args.warp_width,

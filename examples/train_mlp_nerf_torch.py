@@ -1,5 +1,5 @@
-"""Train a vanilla NeRF on the procedural scene with nerfacc_tpu_torch
-(PyTorch on the card).
+"""Train a vanilla NeRF on the procedural scene or an on-disk blender
+dataset with nerfacc_tpu_torch (PyTorch on the card).
 
 The twin of ``examples/train_mlp_nerf.py``: its flags and defaults, the
 vanilla field (an 8 x 256 f32 trunk, ``nn.Linear`` in cuBLAS), Adam at
@@ -15,9 +15,10 @@ the scene's background at the end. The drive:
       --max_samples_per_ray 512 --samples_budget 32768 \\
       --test_chunk_size 1024 --eval_views 2
 
-It runs on the CUDA device unless ``--device cpu`` is given. The on-disk
-datasets (``--data_root``) are not ported yet and raise
-``NotImplementedError``.
+It runs on the CUDA device unless ``--device cpu`` is given. A given
+``--data_root`` always trains through the blender loader (the subject
+``--scene`` under it), with its test split's views for the evaluation, as
+the JAX trainer does.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch  # noqa: E402
 from nerfacc_tpu_torch import create_grid, render_image, render_rays  # noqa: E402
 from nerfacc_tpu_torch import update_grid  # noqa: E402
 from nerfacc_tpu_torch.datasets import ProceduralScene  # noqa: E402
+from nerfacc_tpu_torch.datasets import nerf_synthetic  # noqa: E402
 from nerfacc_tpu_torch.models import VanillaNeRFRadianceField  # noqa: E402
 from nerfacc_tpu_torch.training import hit_ray_loss, multistep_lr  # noqa: E402
 
@@ -44,6 +46,22 @@ DRIVE = ("--max_steps", "300", "--num_rays", "1024", "--image_size", "64",
          "--grid_resolution", "64", "--max_samples_per_ray", "512",
          "--samples_budget", "32768", "--test_chunk_size", "1024",
          "--eval_views", "2")
+
+
+def make_scene(args, device):
+    """The procedural scene where no ``--data_root`` is given, else the
+    blender loader of ``--scene`` under it, whose test split's poses and
+    images replace the train loader's."""
+    if args.data_root is None:
+        if args.scene != "procedural":
+            raise ValueError(f"--scene {args.scene} needs --data_root")
+        return ProceduralScene(width=args.image_size, height=args.image_size,
+                               device=device)
+    kw = dict(subject_id=args.scene, root_fp=args.data_root, device=device)
+    scene = nerf_synthetic.SubjectLoader(split="train", **kw)
+    test = nerf_synthetic.SubjectLoader(split="test", **kw)
+    scene.test_poses, scene.test_images = test.test_poses, test.test_images
+    return scene
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -76,14 +94,9 @@ class Trainer:
     and its training step."""
 
     def __init__(self, args: argparse.Namespace):
-        if args.scene != "procedural" or args.data_root is not None:
-            raise NotImplementedError(
-                "only the procedural scene is ported: the on-disk datasets "
-                "are ROADMAP.md Queue 1 item 12")
         self.args = args
         dev = self.device = torch.device(args.device)
-        self.scene = ProceduralScene(width=args.image_size,
-                                     height=args.image_size, device=dev)
+        self.scene = make_scene(args, dev)
         aabb = tuple(float(v) for v in self.scene.aabb.cpu())
         self.field = VanillaNeRFRadianceField(
             generator=torch.Generator().manual_seed(args.seed), device=dev)

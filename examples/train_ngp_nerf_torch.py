@@ -1,5 +1,6 @@
-"""Train a TensoCP or hash-NGP radiance field on the procedural scene with
-nerfacc_tpu_torch (PyTorch, hand-written CUDA kernels for Hopper).
+"""Train a TensoCP or hash-NGP radiance field on the procedural scene or an
+on-disk dataset with nerfacc_tpu_torch (PyTorch, hand-written CUDA kernels
+for Hopper).
 
 The twin of ``examples/train_ngp_nerf.py``: its flags and defaults, Adam
 (lr 1e-2, eps 1e-15, optional cosine decay to 0.1x), the occupancy grid
@@ -43,9 +44,13 @@ K1 where no gradient is taken), or the hash table's gradient through K7;
 without them the plain PyTorch paths run. ``--ckpt_dir`` saves the run
 every ``--ckpt_every`` steps and at its end, and resumes from the latest
 checkpoint there. It runs on the CUDA device unless ``--device cpu`` is
-given. The on-disk datasets (``--data_root``, ``--dataset``,
-``--factor``), ``--quant_int8`` and ``--ngp_gather_mode per_level`` are
-not ported yet and raise ``NotImplementedError``.
+given. A given ``--data_root`` always trains through an on-disk loader,
+as the JAX trainer does: the COLMAP one (``nerf_360_v2``) for the
+MipNeRF-360 scene names or ``--dataset 360``, the blender one otherwise
+(``--factor`` downsamples; 0 keeps the loader's default), with the test
+split's views for the evaluation. ``--quant_int8`` and
+``--ngp_gather_mode per_level`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,6 +81,8 @@ from nerfacc_tpu_torch.checkpoint import CheckpointManager  # noqa: E402
 from nerfacc_tpu_torch.datasets import (  # noqa: E402
     Procedural360Scene,
     ProceduralScene,
+    nerf_360_v2,
+    nerf_synthetic,
 )
 from nerfacc_tpu_torch.models import (  # noqa: E402
     NGPRadianceField,
@@ -113,10 +120,12 @@ KERNELS = ("--use_kernel", "--fused_march")
 # the options of the JAX trainer this one lacks: (flag, its default,
 # ROADMAP.md Queue 1 item that ports it)
 _NOT_PORTED = (
-    ("data_root", None, "item 12 (datasets)"),
-    ("dataset", "auto", "item 12 (datasets)"),
-    ("factor", 0, "item 12 (datasets)"),
     ("quant_int8", False, "item 14 (measured-rejected knobs)"),
+)
+# MipNeRF-360 capture names: these route --data_root through the COLMAP
+# loader under --dataset auto
+_MIPNERF360_SCENES = (
+    "garden", "bicycle", "bonsai", "counter", "kitchen", "room", "stump",
 )
 # the lattice the unbounded recipe may auto-size to, at most
 _AUTO_SAMPLES_CAP = 8192
@@ -227,14 +236,35 @@ def _check_ported(args) -> None:
             "table-gradient kernel adds feature pairs, and the JAX "
             "package's pallas_grad fails the same way for F != 2 (a defect "
             "of the reference, ROADMAP.md Queue 3); drop --use_kernel")
-    if args.scene not in ("procedural", "procedural360"):
-        raise NotImplementedError(
-            f"--scene {args.scene}: only the procedural scenes are ported "
-            "(the on-disk ones: ROADMAP.md Queue 1 item 12)")
     for flag, default, item in _NOT_PORTED:
         if getattr(args, flag) != default:
             raise NotImplementedError(
                 f"--{flag} is not ported yet: ROADMAP.md Queue 1 {item}")
+
+
+def make_scene(args, device):
+    """The run's scene: a procedural one where no ``--data_root`` is
+    given, else the on-disk loader of ``--scene`` under ``--data_root``
+    (COLMAP under ``--dataset 360``, or ``auto`` with a MipNeRF-360 scene
+    name; blender otherwise), whose test split's poses and images replace
+    the train loader's."""
+    if args.data_root is None:
+        if args.scene not in ("procedural", "procedural360"):
+            raise ValueError(f"--scene {args.scene} needs --data_root")
+        scene_cls = (Procedural360Scene if args.scene == "procedural360"
+                     else ProceduralScene)
+        return scene_cls(n_views=args.train_views, width=args.image_size,
+                         height=args.image_size, device=device)
+    is_360 = args.dataset == "360" or (args.dataset == "auto"
+                                       and args.scene in _MIPNERF360_SCENES)
+    loader = (nerf_360_v2 if is_360 else nerf_synthetic).SubjectLoader
+    kw = dict(subject_id=args.scene, root_fp=args.data_root, device=device)
+    if args.factor:
+        kw["factor"] = args.factor
+    scene = loader(split="train", **kw)
+    test = loader(split="test", **kw)
+    scene.test_poses, scene.test_images = test.test_poses, test.test_images
+    return scene
 
 
 def unbounded_lattice(args, near: float, far: float, step: float,
@@ -280,11 +310,7 @@ class Trainer:
         _check_ported(args)
         self.args = args
         dev = self.device = torch.device(args.device)
-        scene_cls = (Procedural360Scene if args.scene == "procedural360"
-                     else ProceduralScene)
-        self.scene = scene_cls(
-            n_views=args.train_views, width=args.image_size,
-            height=args.image_size, device=dev)
+        self.scene = make_scene(args, dev)
         self.has_bkgd = self.scene.bkgd is not None
         # the training cameras' positions (the cone coupling's cameras)
         self.cam_origins = self.scene.train_poses[:, :3, -1]
@@ -510,14 +536,17 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, trainer=None) -> dict:
     """Train and evaluate; prints the JAX trainer's log lines, ``PSNR:``
     and ``train_time_s:``, and returns the run's numbers: the PSNRs, the
     seconds of the training loop and of the whole run (evaluation
     included, as ``train_time_s``), the live samples summed over the
-    steps, the field budget's drops and the ``trainer``."""
-    args = parse_args(argv)
-    trainer = Trainer(args)
+    steps, the field budget's drops and the ``trainer``. A ``trainer``
+    made by the caller from ``parse_args(argv)`` is trained in place of a
+    new one."""
+    if trainer is None:
+        trainer = Trainer(parse_args(argv))
+    args = trainer.args
     bucketer = (DynamicRayBucketer(args.target_sample_batch_size,
                                    init_num_rays=args.num_rays)
                 if args.target_sample_batch_size > 0 else None)
@@ -558,7 +587,7 @@ def main(argv=None) -> dict:
     loop_s = time.perf_counter() - t_start
     n_test = trainer.eval_views()[0].shape[0]
     print(f"eval: {min(args.eval_views, n_test)} of {n_test} test poses "
-          f"({args.image_size}x{args.image_size})")
+          f"({trainer.scene.width}x{trainer.scene.height})")
     psnrs = trainer.evaluate(args.eval_views)
     train_time = time.perf_counter() - t_start
     print(f"PSNR: {np.mean(psnrs):.2f} (views: {[f'{x:.2f}' for x in psnrs]})")

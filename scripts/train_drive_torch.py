@@ -27,7 +27,8 @@ plain path) and ``--init_npz``: a file of flax trees under
 ``<seed>/field/`` and ``<seed>/proposal/`` (the JAX script's initial draw
 at ``PRNGKey(seed)``, written by ``export_jax_proposal_init`` in
 ``tests/test_torch_trainer.py``), loaded into both fields before a run at
-that seed. Each run calls the
+that seed; ``ngp`` takes one too, of its hash field under
+``<seed>/field/`` (``export_jax_ngp_init``). Each run calls the
 script's ``main`` with the seed and prints one line: the held-out PSNR per
 view and their mean, the training loop's seconds (host clock ending in a
 synchronize), the whole run's (``train_time_s``, as the JAX trainer
@@ -135,11 +136,15 @@ def twins_in_place(names):
 
 def load_jax_init(t, path: Path, seed: int) -> None:
     """Load the JAX script's initial draw at ``PRNGKey(seed)`` from
-    ``path`` into the proposal trainer ``t``'s two fields."""
-    from nerfacc_tpu_torch.convert import tensocp_from_flax
+    ``path`` into the proposal trainer ``t``'s two fields, or into the NGP
+    trainer's hash field."""
+    from nerfacc_tpu_torch.convert import ngp_from_flax, tensocp_from_flax
 
     arrays = np.load(path)
-    for name in ("field", "proposal"):
+    proposal = hasattr(t, "proposal")
+    convert = (tensocp_from_flax if proposal or t.args.model != "ngp"
+               else ngp_from_flax)
+    for name in ("field", "proposal") if proposal else ("field",):
         prefix, tree = f"{seed}/{name}/", {}
         for key in arrays.files:
             if key.startswith(prefix):
@@ -150,7 +155,7 @@ def load_jax_init(t, path: Path, seed: int) -> None:
                 node[leaf] = arrays[key]
         if not tree:
             raise KeyError(f"{path} holds no {prefix}")
-        tensocp_from_flax(tree, getattr(t, name))
+        convert(tree, getattr(t, name))
 
 
 def plain_levels(t, field: str) -> None:
@@ -271,8 +276,9 @@ def main() -> None:
                  for name in names}
     except (KeyError, ValueError) as e:
         ap.error(str(e))
-    if args.init_npz is not None and set(names) - set(PROPOSAL_TRAINERS):
-        ap.error("--init_npz is for the proposal trainers")
+    if args.init_npz is not None and set(names) - {*PROPOSAL_TRAINERS,
+                                                   "ngp"}:
+        ap.error("--init_npz is for the proposal trainers and ngp")
     dev = cs.phase_device()
     cs.phase_build()
     runs = []

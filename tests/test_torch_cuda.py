@@ -1044,3 +1044,128 @@ def test_ray_marching_kernels_on_the_trained_grid(cuda_device):
     assert torch.equal(a.ray_indices, b.ray_indices)
     for x, y in ((a.t_starts, b.t_starts), (a.t_ends, b.t_ends)):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+# The on-disk datasets: a fixture written on the card against the same
+# call on the CPU (one 8-bit level, as the two packages' fixtures are
+# held in tests/test_torch_datasets.py: the renders differ in f32 rounding
+# only, and a straight colour only where its alpha is at least 8/255);
+# the loaders' batches on the card against the CPU loaders' at one seed
+# (the host draws and assembles them alike, so pixels and origins are
+# bit-equal, and the native path's directions too; PyTorch's generate_rays
+# on the card within 1e-6); the page-locked upload bit-equal to a plain
+# .to(device) of the same batch.
+
+
+def _same_fixture_images(a_dir, b_dir):
+    from nerfacc_tpu_torch.datasets.image_io import imread
+
+    names = sorted(p.relative_to(a_dir) for p in a_dir.rglob("*.png"))
+    assert names and names == sorted(p.relative_to(b_dir)
+                                     for p in b_dir.rglob("*.png"))
+    for name in names:
+        a = imread(a_dir / name).astype(np.int16)
+        b = imread(b_dir / name).astype(np.int16)
+        diff = np.abs(a - b)
+        if a.shape[-1] == 4:
+            assert diff[..., 3].max() <= 1, name
+            assert diff[..., :3][b[..., 3] >= 8].max(initial=0) <= 1, name
+        else:
+            assert diff.max() <= 1, name
+
+
+@pytest.mark.cuda
+def test_fixtures_on_card_match_cpu(cuda_device, tmp_path):
+    from nerfacc_tpu_torch.datasets import fixtures
+
+    for dev in ("card", "cpu"):
+        where = cuda_device if dev == "card" else torch.device("cpu")
+        fixtures.write_blender_fixture(tmp_path / dev / "b", n_train=3,
+                                       n_val=0, n_test=1, width=32,
+                                       height=32, device=where)
+        fixtures.write_blender_fixture(tmp_path / dev / "d", n_train=3,
+                                       n_val=0, n_test=1, width=32,
+                                       height=32, dynamic=True, device=where)
+        fixtures.write_colmap_fixture(tmp_path / dev / "c", n_images=4,
+                                      width=32, height=32, device=where)
+    for kind in ("b", "d", "c"):
+        _same_fixture_images(tmp_path / "card" / kind, tmp_path / "cpu" / kind)
+    for name in ("cameras.bin", "images.bin"):
+        assert ((tmp_path / "card/c/procedural360/sparse/0" / name)
+                .read_bytes() == (tmp_path / "cpu/c/procedural360/sparse/0"
+                                  / name).read_bytes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_loader_batches_on_card_match_cpu(cuda_device, tmp_path,
+                                          monkeypatch, path):
+    from nerfacc_tpu_torch import data_io
+    from nerfacc_tpu_torch.datasets import (
+        dnerf_synthetic,
+        fixtures,
+        nerf_360_v2,
+        nerf_synthetic,
+    )
+
+    if path == "native":
+        assert data_io.lib() is not None, "the native assembler must build"
+    else:
+        monkeypatch.setattr(data_io, "lib", lambda: None)
+    cpu = torch.device("cpu")
+    fixtures.write_blender_fixture(tmp_path / "b", n_train=3, n_val=0,
+                                   n_test=1, width=24, height=24,
+                                   device=cuda_device)
+    fixtures.write_blender_fixture(tmp_path / "d", n_train=3, n_val=0,
+                                   n_test=1, width=24, height=24,
+                                   dynamic=True, device=cuda_device)
+    fixtures.write_colmap_fixture(tmp_path / "c", n_images=9, width=24,
+                                  height=24, device=cuda_device)
+    cases = (
+        (nerf_synthetic.SubjectLoader, "b", "procedural",
+         dict(color_bkgd_aug="random")),
+        (dnerf_synthetic.SubjectLoader, "d", "procedural", {}),
+        (nerf_360_v2.SubjectLoader, "c", "procedural360", dict(factor=1)),
+    )
+    for cls, sub, subject, kw in cases:
+        card, host = (cls(subject, str(tmp_path / sub), seed=4, device=dev,
+                          **kw) for dev in (cuda_device, cpu))
+        for name in ("images", "test_images", "train_poses", "K"):
+            assert torch.equal(getattr(card, name).cpu(),
+                               getattr(host, name)), name
+        for _ in range(3):
+            (rays, px, *t), (hrays, hpx, *ht) = (
+                card.sample_batch(4099), host.sample_batch(4099))
+            assert rays.origins.device == px.device == card.device
+            assert torch.equal(px.cpu(), hpx)
+            assert torch.equal(rays.origins.cpu(), hrays.origins)
+            native = path == "native" and sub == "b"
+            torch.testing.assert_close(rays.viewdirs.cpu(), hrays.viewdirs,
+                                       rtol=0.0, atol=0.0 if native else 1e-6)
+            for a, b in zip(t, ht):
+                assert torch.equal(a.cpu(), b)
+            assert torch.equal(card.bkgd.cpu(), host.bkgd)
+
+
+@pytest.mark.cuda
+def test_pinned_upload_matches_a_plain_copy(cuda_device, tmp_path):
+    from nerfacc_tpu_torch import data_io
+    from nerfacc_tpu_torch.datasets import fixtures, nerf_synthetic
+
+    assert data_io.lib() is not None, "the native assembler must build"
+    fixtures.write_blender_fixture(tmp_path, n_train=4, n_val=0, n_test=1,
+                                   width=32, height=32, device=cuda_device)
+    loader = nerf_synthetic.SubjectLoader("procedural", str(tmp_path),
+                                          color_bkgd_aug="random", seed=9,
+                                          device=cuda_device)
+    rng = np.random.RandomState(9)
+    # five batches back to back, the page-locked buffers written while the
+    # card may still be copying the last ones
+    got = [loader.sample_batch(n) for n in (8192, 8192, 8192, 1000, 8192)]
+    for (rays, px), n in zip(got, (8192, 8192, 8192, 1000, 8192)):
+        bkgd = rng.rand(3).astype(np.float32)
+        o, d, p = data_io.sample_ray_batch(
+            loader._images_np, loader._poses_np, loader._intrin_np, bkgd,
+            seed=int(rng.randint(0, 2**31)), num_rays=n)
+        for a, b in ((rays.origins, o), (rays.viewdirs, d), (px, p)):
+            assert torch.equal(a, torch.from_numpy(b).to(cuda_device))

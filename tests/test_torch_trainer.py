@@ -304,21 +304,62 @@ def test_trainer_steps_on_cpu(trainer, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--data_root", "somewhere"], ["--quant_int8"],
-    ["--model", "ngp", "--ngp_gather_mode", "per_level"],
-    ["--dataset", "360"], ["--factor", "4"],
+    ["--quant_int8"], ["--model", "ngp", "--ngp_gather_mode", "per_level"],
 ])
 def test_trainer_refuses_what_it_does_not_port(trainer, flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         trainer.Trainer(trainer.parse_args(TINY + flags))
 
 
-@pytest.mark.parametrize("name", ["mlp", "dnerf"])
-def test_mlp_trainers_refuse_the_datasets(name):
+@pytest.fixture(scope="module")
+def disk_fixtures(tmp_path_factory):
+    """Tiny on-disk fixtures written by the port on the CPU: blender (16
+    px), D-NeRF (16 px, 4 timestamps) and COLMAP-360 (9 images, 16 px)."""
+    from nerfacc_tpu_torch.datasets import fixtures
+
+    root = tmp_path_factory.mktemp("on_disk")
+    kw = dict(width=16, height=16, device=CPU)
+    fixtures.write_blender_fixture(root / "blender", n_train=4, n_val=1,
+                                   n_test=2, **kw)
+    fixtures.write_blender_fixture(root / "dnerf", n_train=4, n_val=0,
+                                   n_test=2, dynamic=True, **kw)
+    fixtures.write_colmap_fixture(root / "colmap", n_images=9, **kw)
+    return root
+
+
+# trainer -> the flags of one on-disk case ({root}: the fixtures' root)
+ON_DISK_CASES = {
+    "data_root": ("ngp", ["--data_root", "{root}/blender"]),
+    "dataset 360": ("ngp", [
+        "--scene", "procedural360", "--dataset", "360", "--factor", "1",
+        "--data_root", "{root}/colmap", "--unbounded", "--coarse_stride",
+        "16", "--probe_groups", "32"]),
+    "factor": ("ngp", ["--factor", "2", "--data_root", "{root}/blender"]),
+    "mlp data_root": ("mlp", ["--data_root", "{root}/blender"]),
+    "dnerf data_root": ("dnerf", ["--data_root", "{root}/dnerf"]),
+}
+
+
+@pytest.mark.parametrize("case", list(ON_DISK_CASES))
+def test_trainers_take_the_on_disk_flags(disk_fixtures, case, capsys):
+    name, flags = ON_DISK_CASES[case]
     script, tiny = NEW_TRAINERS[name]
-    module = _load(f"t_{name}", script)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        module.Trainer(module.parse_args(tiny + ["--data_root", "x"]))
+    if name == "ngp":  # the TensoCP trainer with its kernels' twins
+        script, tiny = "examples/train_ngp_nerf_torch.py", TINY
+    module = _load(f"t_disk_{name}", script)
+    argv = tiny + [f.format(root=disk_fixtures) for f in flags]
+    out = module.main(argv + ["--max_steps", "3"])
+    log = capsys.readouterr().out
+    assert "step=2 loss=" in log and "PSNR: " in log
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in log.splitlines() if line.startswith("step=")]
+    assert losses and all(np.isfinite(losses)), losses
+    scene = out["trainer"].scene
+    assert type(scene).__name__ == "SubjectLoader"
+    size = 8 if case == "factor" else 16
+    assert (scene.height, scene.width) == (size, size)
+    assert scene.test_images.shape[0] == 2
+    assert np.isfinite(out["psnr"]) and out["samples"] > 0
 
 
 def test_ngp_trainer_refuses_four_features_with_the_kernel(trainer):
@@ -627,6 +668,39 @@ def export_jax_proposal_init(path, prop_grid, seeds=(42, 43, 44)):
     np.savez(path, **flat)
 
 
+def jax_ngp_init(seed, n_levels=16, log2_hashmap_size=19, n_features=2):
+    """The JAX NGP trainer's initial parameters at ``PRNGKey(seed)``
+    (``examples/train_ngp_nerf.py:398-408``: the key split once, the field
+    initialised on zeros), as a numpy flax tree. The draw does not depend
+    on the aabb or on ``--unbounded``."""
+    from nerfacc_tpu.models import NGPRadianceField as JaxNGP
+
+    field = JaxNGP(aabb=(-1.5,) * 3 + (1.5,) * 3, n_levels=n_levels,
+                   log2_hashmap_size=log2_hashmap_size, n_features=n_features)
+    _, k_init = jax.random.split(jax.random.PRNGKey(seed))
+    params = field.init(k_init, jnp.zeros((8, 3)), jnp.zeros((8, 3)))
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def export_jax_ngp_init(path, seeds=(43,), **sizes):
+    """Write :func:`jax_ngp_init` at each seed to ``path`` as the
+    ``--init_npz`` file of ``scripts/train_drive_torch.py --trainer ngp``
+    (keys ``<seed>/field/...``; 67 MB a seed at the drive's 16 levels x
+    2^19 entries):
+
+        JAX_PLATFORMS=cpu python -c "from tests.test_torch_trainer import
+        export_jax_ngp_init as e; e('build/jax_init_ngp.npz')"
+    """
+    flat = {}
+    for seed in seeds:
+        leaves = jax.tree_util.tree_flatten_with_path(
+            jax_ngp_init(seed, **sizes))[0]
+        for keys, leaf in leaves:
+            name = "/".join(str(getattr(k, "key", k)) for k in keys)
+            flat[f"{seed}/field/{name}"] = leaf
+    np.savez(path, **flat)
+
+
 def _proposal_pair(module, unbounded, use_kernel):
     """The port's proposal trainer (tiny) and the JAX package's two fields
     as the JAX script builds them, the port's loaded with their
@@ -831,6 +905,28 @@ def test_jax_init_file_loads_into_the_proposal_trainer(proposal_trainer,
                 assert torch.equal(got[key], value), (seed, name, key)
     with pytest.raises(KeyError):
         drive_script.load_jax_init(t, path, 44)
+
+
+def test_jax_ngp_init_file_loads_into_the_ngp_trainer(trainer,
+                                                      drive_script,
+                                                      tmp_path):
+    path = tmp_path / "init.npz"
+    export_jax_ngp_init(path, seeds=(43, 44), n_levels=4,
+                        log2_hashmap_size=10)
+    t = trainer.Trainer(trainer.parse_args(TINY_NGP))
+    drive_script.load_jax_init(t, path, 44)
+    want = NGPRadianceField(aabb=(-1.5,) * 3 + (1.5,) * 3, n_levels=4,
+                            log2_hashmap_size=10, device=CPU)
+    from nerfacc_tpu_torch.convert import ngp_from_flax
+
+    ngp_from_flax(jax_ngp_init(44, n_levels=4, log2_hashmap_size=10), want)
+    for name, p in want.state_dict().items():
+        assert torch.equal(t.field.state_dict()[name], p), name
+    # another seed is another draw
+    drive_script.load_jax_init(t, path, 43)
+    assert not torch.equal(t.field.encoder.table, want.encoder.table)
+    with pytest.raises(KeyError, match="42/field"):
+        drive_script.load_jax_init(t, path, 42)
 
 
 @pytest.mark.parametrize("name,modes,want", [
