@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of nerfacc_tpu_torch's render path, TensoCP training step,
-hash-NGP training step, its trainers (seven drives) and the reference's
-flat packed API on one NVIDIA GPU.
+hash-NGP training step, its trainers (seven drives), the reference's flat
+packed API, the on-disk datasets and data parallelism on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -162,6 +162,32 @@ Phases (any failed check raises, and the script exits nonzero):
     hash-NGP trainer with the kernels at 2^18-sample batches (K5, K6 and
     K7 must launch, no PSNR floor): ms per step, live samples per step,
     and ms per batch for the native assembly, the upload and both.
+18. Data parallelism over ``torch.distributed``
+    (``scripts/dryrun_multichip_torch.py``: 16,384 rays, 48 slots per ray
+    and 24 after the cull, the flagship TensoCP field with the CP kernels
+    and the reference NGP field with K7, the trained grid) and the last two
+    knobs. A world of one under NCCL (this process): the data-parallel
+    step equals ``training.train_step`` on the same weights and rays (loss
+    within 1e-6 relative, each gradient within 1e-5 in relative L2, printed
+    beside two train_steps' own spread); the step ms of ``train_step``, of
+    the data-parallel step and of the dry run's full cadence with
+    ``update_grid_distributed``, and the two collectives' ms. A world of
+    two under gloo, both processes on the one card (NCCL refuses two ranks
+    on a device): the sharded colours, loss and mean gradients against one
+    process on the whole batch (the script's bounds), each rank's step ms
+    and collectives' ms, and each rank's kernels held to their twins on its
+    inputs; then ``update_grid_distributed`` on the trained grid, whose
+    merge must equal the elementwise max of the ranks' own updates bit for
+    bit, follow the threshold rule and cover more cells than a rank.
+    ``quant_int8`` on the card against its CPU run (forward and the
+    flagship levels' features bit-equal, table gradient within
+    CP_GRAD_REL); ``gather_mode="per_level"`` against the packed gather
+    on the reference NGP encoder at 393,216 points, with and without K7
+    (forward and the backward's inputs bit-equal, gradients within
+    HASH_GRAD_REL); the flagship drive cut to QUANT_STEPS steps with and
+    without ``--quant_int8`` (floor QUANT_PSNR_FLOOR each; the gap
+    printed). Every path's launches are counted and its kernels held to
+    their twins on its inputs.
 Each drive prints its PSNR per view, loop seconds, live samples and
 samples/s, and the launches per kernel.
 
@@ -2757,6 +2783,423 @@ def phase_datasets(dev) -> tuple:
     return paths, inputs
 
 
+# Phase 18: data parallelism over torch.distributed
+# (scripts/dryrun_multichip_torch.py) and the last two knobs
+DP_MODELS = ("tensocp", "ngp")
+DP_STEPS = 5  # timed steps of each kind
+DP_KERNELS = {
+    "tensocp": ("cp_level_features", "cp_level_features_res",
+                "cp_level_grads_res", "fused_select_grouped",
+                "fused_reselect"),
+    "ngp": ("fused_select_grouped", "fused_reselect",
+            "hash_grad_scatter_levels"),
+}
+# World of one under NCCL against training.train_step: the same program
+# with an all-reduce of one rank between backward and Adam; K4's and K7's
+# atomics add in run order, so two single-process runs differ too (printed)
+DP1_LOSS_RTOL, DP1_GRAD_REL_L2 = 1e-6, 1e-5
+# the --quant_int8 flagship drive: the flagship recipe cut to this many
+# steps, with and without the flag, each over a floor that a broken field
+# misses; the gap expected between them (printed, not a gate: what a knob
+# costs in quality is a measurement)
+QUANT_STEPS, QUANT_PSNR_FLOOR, QUANT_GAP_DB = 300, 25.0, 1.5
+
+
+def _dp_script():
+    _scripts()
+    import dryrun_multichip_torch
+
+    return dryrun_multichip_torch
+
+
+def _grads_of(field) -> dict:
+    return {k: p.grad.detach().clone() for k, p in field.named_parameters()}
+
+
+def _time_ms(fn) -> float:
+    """``fn()``'s host ms, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _dp_steps(dry, field, opt, grid, mesh, kw, batch, grid_update):
+    """DP_STEPS data-parallel steps after one warm-up: the grid they leave
+    and, per step, its host ms, loss and live samples."""
+    key = torch.Generator(device=grid.occs.device).manual_seed(SEED)
+    grid, _ = dry.run_steps(field, opt, grid, mesh, kw, *batch, 1, key,
+                            grid_update=grid_update)
+    return dry.run_steps(field, opt, grid, mesh, kw, *batch, DP_STEPS, key,
+                         first_step=1, grid_update=grid_update)
+
+
+def _dp_path(dev, dry, model, mesh, path, batch, n_local):
+    """The data-parallel step's timed run with every launch count set to 0
+    just before and read just after, each kernel of the model's path
+    recorded and then held to its twin on its inputs. Returns ``(counts,
+    rows per kernel, records)``."""
+    field = dry.make_field(model, dev)
+    opt = torch.optim.Adam(field.parameters(), lr=dry.LR)
+    grid = dry.make_grid(dev)
+    kernels = DP_KERNELS[model]
+    with recording(kernels) as recorders:
+        (_, rec), counts = drive(
+            path, lambda: _dp_steps(dry, field, opt, grid, mesh,
+                                    dry.render_kw(model, n_local), batch,
+                                    True),
+            kernels, [k for k in kernel_counters() if k not in kernels])
+    for ms, loss, n in rec:
+        if not np.isfinite(loss):
+            raise AssertionError(f"{path}: loss {loss}")
+    _check_finite_params(path, field)
+    return counts, check_trainer_inputs(dev, recorders, path), rec
+
+
+def dp_world_of_one(dev) -> tuple:
+    """Phase 18, part 1: a world of one under NCCL (this process): the
+    data-parallel step (no grid update) against ``training.train_step`` on
+    the same weights and rays, beside two train_steps' own spread; the step
+    ms of both and of the full cadence; the collectives' ms; the kernels'
+    launches and their twins on the step's inputs."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nerfacc_tpu_torch import train_step
+    from nerfacc_tpu_torch.parallel import init_distributed, make_mesh
+
+    dry = _dp_script()
+    paths, inputs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(init_method=f"file://{tmp}/store", num_processes=1,
+                         process_id=0, timeout=300)
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"backend {dist.get_backend()}")
+            mesh = make_mesh()
+            batch = dry.make_batch(dry.N_RAYS, dev)
+            for model in DP_MODELS:
+                kw = dry.render_kw(model, dry.N_RAYS)
+                runs = []
+                for how in ("dp", "single", "single"):
+                    field = dry.make_field(model, dev)
+                    opt = torch.optim.Adam(field.parameters(), lr=dry.LR)
+                    grid = dry.make_grid(dev)
+                    if how == "dp":
+                        step = dry.dp_step(field, opt, mesh, kw, None,
+                                           grid_update=False)
+                        _, loss, n = step(grid, *batch, 0)
+                    else:
+                        loss, n = train_step(field, opt, grid, *batch, **kw)
+                    runs.append((float(loss), int(n), _grads_of(field)))
+                (l_dp, n_dp, g_dp), (l_1, n_1, g_1), (_, _, g_2) = runs
+                rel = abs(l_dp - l_1) / abs(l_1)
+                worst = max((_rel_l2(g_dp[k], g_1[k]), k) for k in g_1)
+                spread = max((_rel_l2(g_2[k], g_1[k]), k) for k in g_1)
+                print(f"data parallel, world of one (NCCL), {model}: loss "
+                      f"{l_dp:.7f} vs train_step {l_1:.7f} (rel {rel:.2e}); "
+                      f"live samples {n_dp} vs {n_1}; worst gradient rel L2 "
+                      f"{worst[0]:.2e} ({worst[1]}); two train_steps' own "
+                      f"spread {spread[0]:.2e} ({spread[1]})")
+                if rel > DP1_LOSS_RTOL or worst[0] > DP1_GRAD_REL_L2 \
+                        or n_dp != n_1:
+                    raise AssertionError(f"world of one, {model}: the "
+                                         "data-parallel step is not the "
+                                         "single-process step")
+                # times: train_step, the DP step without and with the grid
+                # update (the dry run's full cadence)
+                field = dry.make_field(model, dev)
+                opt = torch.optim.Adam(field.parameters(), lr=dry.LR)
+                grid = dry.make_grid(dev)
+                train_step(field, opt, grid, *batch, **kw)  # warm-up
+                single = [_time_ms(lambda: train_step(
+                    field, opt, grid, *batch, **kw))
+                    for _ in range(DP_STEPS)]
+                _, bare = _dp_steps(dry, field, opt, grid, mesh, kw, batch,
+                                    False)
+                path = f"data parallel NCCL world 1 {model}"
+                paths[path], found, full = _dp_path(dev, dry, model, mesh,
+                                                    path, batch, dry.N_RAYS)
+                for name, rows in found.items():
+                    inputs.setdefault(name, []).extend(rows)
+                coll = dry.time_collectives(field, grid, mesh)
+                med = statistics.median
+                print(f"data parallel, world of one (NCCL), {model}: "
+                      f"train_step median {med(single):.3f} ms; DP step "
+                      f"{med([r[0] for r in bare]):.3f} ms; DP step with "
+                      f"update_grid_distributed (warm-up path, every cell) "
+                      f"{med([r[0] for r in full]):.3f} ms; gradient "
+                      f"all-reduce {coll['grad_allreduce']:.4f} ms "
+                      f"({coll['grad_allreduce_bytes']} bytes), grid MAX "
+                      f"all-reduce {coll['grid_max_allreduce']:.4f} ms "
+                      f"({coll['grid_max_allreduce_bytes']} bytes)  "
+                      f"[{smi_line()}]")
+                del field, opt
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    return paths, inputs
+
+
+def dp_rank(rank: int, world: int, init_method: str) -> dict:
+    """Phase 18, part 2: one rank of the world of two under gloo, both on
+    the one card (``launch_world``'s ``fn``). Per model: the sharded
+    equality check against one process on the whole batch (rank 0), then
+    the timed data-parallel steps with their launches and each kernel held
+    to its twin on this rank's inputs. Then ``update_grid_distributed``'s
+    merge on the trained grid. Returns CPU values only."""
+    import torch.distributed as dist
+
+    from nerfacc_tpu_torch.grid import _draw_cells, _update_grid_at
+    from nerfacc_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        replicate,
+    )
+    from nerfacc_tpu_torch.parallel.sharding import (
+        _update_grid_distributed_at,
+        fold_in,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dry = _dp_script()
+    init_distributed(init_method=init_method, num_processes=world,
+                     process_id=rank, backend="gloo", timeout=300)
+    out = {"paths": {}, "inputs": {}, "models": {}}
+    try:
+        mesh = make_mesh()
+        dev = mesh.device
+        batch = dry.make_batch(dry.N_RAYS, dev)
+        n_local = dry.N_RAYS // world
+        for model in DP_MODELS:
+            field = replicate(dry.make_field(model, dev), mesh)
+            grid = dry.make_grid(dev)
+            got = dry.sharded_loss_grads(
+                field, grid, *batch, mesh,
+                dry.render_kw(model, n_local, compaction=None))
+            errs = None
+            if rank == 0:
+                errs = dry.compare(got, dry.single_loss_grads(
+                    field, grid, *batch,
+                    dry.render_kw(model, dry.N_RAYS, compaction=None)))
+            del field
+            path = f"data parallel gloo world 2 rank {rank} {model}"
+            counts, found, rec = _dp_path(dev, dry, model, mesh, path, batch,
+                                          n_local)
+            field = dry.make_field(model, dev)
+            coll = dry.time_collectives(field, grid, mesh)
+            out["paths"][path] = counts
+            for name, rows in found.items():
+                out["inputs"].setdefault(name, []).extend(rows)
+            out["models"][model] = dict(check=errs, steps=rec,
+                                        collectives=coll)
+            del field
+            torch.cuda.empty_cache()
+        # the merge on the trained grid: each rank's own draws (sampled
+        # path), its own update, and the merged update of the same draws
+        field = dry.make_field("tensocp", dev)
+        grid = dry.make_grid(dev)
+        step_size = dry.MARCH_KW["render_step_size"]
+
+        def occ(x):
+            return field.query_opacity(x, step_size)
+
+        key = fold_in(torch.Generator(device=dev).manual_seed(SEED),
+                      mesh.axis_index("data"))
+        idx, jitter = _draw_cells(grid, key, warmup=False)
+        with torch.no_grad():
+            own = _update_grid_at(grid, idx, jitter, occ, occ_thre=1e-2,
+                                  ema_decay=0.95, adaptive_thre=True)
+            merged = _update_grid_distributed_at(
+                grid, idx, jitter, occ, mesh.groups["data"], warmup=False)
+        thre = torch.minimum(merged.occs.mean(),
+                             torch.tensor(1e-2, device=dev))
+        out["grid"] = dict(
+            own=own.occs.cpu().numpy(), merged=merged.occs.cpu().numpy(),
+            rule=bool(torch.equal(merged.binary.reshape(-1),
+                                  merged.occs > thre)),
+            occupied=int(merged.binary.sum()), before=int(grid.binary.sum()),
+            cells=np.unique(idx.cpu().numpy()).astype(np.int32))
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_world_of_two(dev) -> tuple:
+    """Phase 18, part 2 in the parent: spawns the two ranks (the kernels are
+    built already), then reads their checks, times and launches."""
+    from nerfacc_tpu_torch.parallel.multihost import launch_world
+
+    dry = _dp_script()
+    ranks = launch_world(dp_rank, 2, timeout=400)
+    paths, inputs = {}, {}
+    for r in ranks:
+        paths.update(r["paths"])
+        for name, rows in r["inputs"].items():
+            inputs.setdefault(name, []).extend(rows)
+    for model in DP_MODELS:
+        errs = ranks[0]["models"][model]["check"]
+        print(f"data parallel, world of two (gloo, one card), {model}: "
+              f"sharded vs one process on {dry.N_RAYS} rays: loss rel "
+              f"{errs['loss_rel']:.2e} (bound {dry.LOSS_RTOL}), colours max "
+              f"abs {errs['color_max_abs']:.2e} (rtol {dry.COLOR_RTOL} / "
+              f"atol {dry.COLOR_ATOL}), worst gradient rel L2 "
+              f"{errs['grad_rel_l2']:.2e} ({errs['worst_leaf']}; bound "
+              f"{dry.GRAD_REL_L2})")
+        for rank, r in enumerate(ranks):
+            m = r["models"][model]
+            ms = [s[0] for s in m["steps"]]
+            c = m["collectives"]
+            print(f"  rank {rank}: DP step with update_grid_distributed "
+                  f"median {statistics.median(ms):.3f} ms (min {min(ms):.3f}"
+                  f"), losses {[round(s[1], 6) for s in m['steps']]}, live "
+                  f"samples (world) {[s[2] for s in m['steps']]}; gradient "
+                  f"all-reduce {c['grad_allreduce']:.3f} ms, grid MAX "
+                  f"all-reduce {c['grid_max_allreduce']:.3f} ms (gloo stages "
+                  f"CUDA tensors through host memory: not NCCL's time)  "
+                  f"[{smi_line()}]")
+    g0, g1 = ranks[0]["grid"], ranks[1]["grid"]
+    want = np.maximum(g0["own"], g1["own"])
+    _check_equal("update_grid_distributed merge",
+                 torch.as_tensor(g0["merged"]), torch.as_tensor(want))
+    _check_equal("update_grid_distributed on both ranks",
+                 torch.as_tensor(g1["merged"]), torch.as_tensor(g0["merged"]))
+    union = np.union1d(g0["cells"], g1["cells"]).size
+    print(f"update_grid_distributed (128^3, sampled path, world of two): "
+          f"merged occs bit-equal to the elementwise max of the ranks' own "
+          f"updates; binary follows min(mean, 1e-2): {g0['rule']} / "
+          f"{g1['rule']}; distinct cells evaluated {union} merged vs "
+          f"{g0['cells'].size} / {g1['cells'].size} per rank; occupied "
+          f"{g0['occupied']} (before {g0['before']})")
+    if not (g0["rule"] and g1["rule"]):
+        raise AssertionError("update_grid_distributed: binary off its rule")
+    if not union > max(g0["cells"].size, g1["cells"].size):
+        raise AssertionError("the merge evaluated no more cells than a rank")
+    return paths, inputs
+
+
+def check_last_knobs(dev) -> tuple:
+    """Phase 18, part 3: ``quant_int8`` on the card against its own CPU
+    run; ``gather_mode="per_level"`` against the packed gather on the card
+    (forward bit-equal, the backward's inputs bit-equal, its results within
+    HASH_GRAD_REL), with and without K7; then the flagship drive cut to
+    QUANT_STEPS steps with and without ``--quant_int8``."""
+    from nerfacc_tpu_torch.models import HashEncoder, TensoCPRadianceField
+    from nerfacc_tpu_torch.models.tensorf import hat_matmul_int8
+    from nerfacc_tpu_torch.ops import hash_gather as hg
+
+    rng = np.random.RandomState(SEED + 18)
+    # quant_int8: a level of the flagship field at the step's sample count
+    G, R, B = 512, 128, TRAIN_RAYS * 48
+    u = torch.as_tensor((rng.rand(B) * (G - 1)).astype(np.float32))
+    table = torch.as_tensor((rng.randn(G, R) * 0.2).astype(np.float32))
+    g = torch.as_tensor(rng.randn(B, R).astype(np.float32)).to(
+        torch.bfloat16).float()
+    res = []
+    for device in (dev, torch.device("cpu")):
+        t = table.to(device).requires_grad_(True)
+        y = hat_matmul_int8(u.to(device), t)
+        y.backward(g.to(device))
+        res.append((y.detach().cpu(), t.grad.cpu()))
+    _check_equal("quant_int8 forward, card vs CPU", res[0][0], res[1][0])
+    scale = float(res[1][1].abs().max())
+    err = _check_close("quant_int8 table gradient, card vs CPU", res[0][1],
+                       res[1][1], 0.0, CP_GRAD_REL * scale)
+    fields = [TensoCPRadianceField(aabb=AABB, quant_int8=True,
+                                   generator=torch.Generator().manual_seed(
+                                       SEED), device=device)
+              for device in (dev, torch.device("cpu"))]
+    xu = torch.as_tensor(rng.rand(131072, 3).astype(np.float32))
+    with torch.no_grad():
+        for i, (a, b) in enumerate(zip(fields[0].cp_levels,
+                                       fields[1].cp_levels)):
+            _check_equal(f"quant_int8 level {i} features, card vs CPU",
+                         a(xu.to(dev)).cpu(), b(xu))
+    print(f"quant_int8 on the card vs its CPU run: hat_matmul_int8 at {B} "
+          f"samples x G={G} x R={R} forward bit-equal, table gradient "
+          f"{err / scale:.2e} x max|dT| {scale:.3e} (bound {CP_GRAD_REL}); "
+          f"both flagship levels' bf16 features bit-equal at 131,072 points")
+    # per_level against packed: the reference NGP encoder at the NGP
+    # step's field budget
+    x = torch.as_tensor(rng.rand(NGP_FIELD_BUDGET, 3).astype(np.float32),
+                        device=dev)
+    gy = torch.as_tensor(rng.randn(NGP_FIELD_BUDGET, 32).astype(np.float32),
+                         device=dev)
+    for pallas_grad in (False, True):
+        name = ("hash_grad_scatter_levels" if pallas_grad
+                else "_index_add_levels")
+        seen, real = [], getattr(hg, name)
+
+        def record(*args, real=real, seen=seen):
+            seen.append([a.clone() for a in args])
+            return real(*args)
+
+        record.launches = 0
+        setattr(hg, name, record)
+        try:
+            outs = []
+            for mode in ("packed", "per_level"):
+                enc = HashEncoder(pallas_grad=pallas_grad, gather_mode=mode,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED), device=dev)
+                y = enc(x)
+                (y * gy).sum().backward()
+                outs.append((y.detach(), enc.table.grad))
+        finally:
+            setattr(hg, name, real)
+        _check_equal("per_level forward", outs[1][0], outs[0][0])
+        for a, b in zip(*seen):
+            _check_equal("per_level backward inputs", a, b)
+        scale = float(outs[0][1].abs().max())
+        err = _check_close("per_level table gradient", outs[1][1],
+                           outs[0][1], 0.0, HASH_GRAD_REL * scale)
+        print(f"gather_mode per_level vs packed on the card "
+              f"({NGP_FIELD_BUDGET} points, 16 x 2^19, "
+              f"{'K7' if pallas_grad else 'index_add_'}): forward "
+              f"bit-equal, the backward's {len(seen[0])} inputs bit-equal, "
+              f"table gradients {err / scale:.2e} x max|dT| (atomic order)")
+    # the flagship drive cut to QUANT_STEPS steps, without and with the flag
+    module = load_example("train_ngp_nerf_torch")
+    argv = [*module.FLAGSHIP, *module.KERNELS, "--seed", str(TRAINER_SEED),
+            "--max_steps", str(QUANT_STEPS)]
+    paths, inputs, psnr = {}, {}, {}
+    for path, extra, kernels in (
+            ("flagship 300 steps", [], DP_KERNELS["tensocp"]),
+            ("flagship 300 steps --quant_int8", ["--quant_int8"],
+             ("fused_select_grouped", "fused_reselect"))):
+        paths[path], found, t = run_drive(dev, path, module, argv + extra,
+                                          QUANT_PSNR_FLOOR, kernels)
+        psnr[path] = t.last_run["psnr"]
+        for name, rows in found.items():
+            inputs.setdefault(name, []).extend(rows)
+        del t
+        torch.cuda.empty_cache()
+    a, b = psnr.values()
+    within = "within" if abs(a - b) <= QUANT_GAP_DB else "OUTSIDE"
+    print(f"--quant_int8 flagship drive ({QUANT_STEPS} steps, seed "
+          f"{TRAINER_SEED}): PSNR {b:.4f} vs {a:.4f} without the flag "
+          f"(gap {a - b:+.4f} dB; {within} {QUANT_GAP_DB} dB)  "
+          f"[{smi_line()}]")
+    return paths, inputs
+
+
+def phase_data_parallel(dev) -> tuple:
+    """Phase 18 (see the module docstring). Returns the launch counts per
+    path and the kernels' checks on the paths' inputs, merged per kernel."""
+    t0 = time.perf_counter()
+    paths, inputs = {}, {}
+    for part in (dp_world_of_one, dp_world_of_two, check_last_knobs):
+        counts, found = part(dev)
+        paths.update(counts)
+        for name, rows in found.items():
+            inputs.setdefault(name, []).extend(rows)
+    print(f"phase 18 (data parallel and the last knobs): "
+          f"{time.perf_counter() - t0:.1f} s")
+    return paths, inputs
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2769,7 +3212,8 @@ def main() -> None:
     paths.update(phase_gather_script(dev))
     trainer_counts, trainer_inputs = phase_trainers(dev)
     paths.update(trainer_counts)
-    for counts, found in (phase_flat(dev), phase_datasets(dev)):
+    for counts, found in (phase_flat(dev), phase_datasets(dev),
+                          phase_data_parallel(dev)):
         paths.update(counts)
         for name, rows in found.items():
             trainer_inputs.setdefault(name, []).extend(rows)

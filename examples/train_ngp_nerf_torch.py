@@ -48,9 +48,10 @@ given. A given ``--data_root`` always trains through an on-disk loader,
 as the JAX trainer does: the COLMAP one (``nerf_360_v2``) for the
 MipNeRF-360 scene names or ``--dataset 360``, the blender one otherwise
 (``--factor`` downsamples; 0 keeps the loader's default), with the test
-split's views for the evaluation. ``--quant_int8`` and
-``--ngp_gather_mode per_level`` are not ported yet and raise
-``NotImplementedError``.
+split's views for the evaluation. ``--quant_int8`` takes the TensoCP
+levels' products in int8 steps (before ``--use_kernel``, as the JAX
+trainer does), and ``--ngp_gather_mode per_level`` gathers each hash level
+from its own slice of the table (the packed gather's values).
 """
 
 from __future__ import annotations
@@ -117,11 +118,6 @@ U360 = ("--scene", "procedural360", "--unbounded", "--max_steps", "2000",
         "--occ_cone_coupling", "0", "--distortion_loss", "0.03")
 KERNELS = ("--use_kernel", "--fused_march")
 
-# the options of the JAX trainer this one lacks: (flag, its default,
-# ROADMAP.md Queue 1 item that ports it)
-_NOT_PORTED = (
-    ("quant_int8", False, "item 14 (measured-rejected knobs)"),
-)
 # MipNeRF-360 capture names: these route --data_root through the COLMAP
 # loader under --dataset auto
 _MIPNERF360_SCENES = (
@@ -161,7 +157,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cone_angle", type=float, default=None,
                    help="per-ray step growth (default: 0 bounded, 0.004 "
                    "unbounded)")
-    p.add_argument("--quant_int8", action="store_true")
+    p.add_argument("--quant_int8", action="store_true",
+                   help="TensoCP: the levels' products in int8 steps, the "
+                   "tables' gradients exact in bf16 (before --use_kernel)")
     p.add_argument("--auto_aabb", action="store_true",
                    help="bound the scene by the camera positions")
     p.add_argument("--ckpt_dir", type=str, default=None,
@@ -225,21 +223,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def _check_ported(args) -> None:
-    if args.model == "ngp" and args.ngp_gather_mode == "per_level":
-        raise NotImplementedError(
-            "--ngp_gather_mode per_level is not ported: ROADMAP.md Queue 1 "
-            "item 14 (measured-rejected knobs)")
+def _check_flags(args) -> None:
     if args.model == "ngp" and args.use_kernel and args.ngp_features != 2:
         raise ValueError(
             f"--ngp_features {args.ngp_features} with --use_kernel: the "
             "table-gradient kernel adds feature pairs, and the JAX "
             "package's pallas_grad fails the same way for F != 2 (a defect "
             "of the reference, ROADMAP.md Queue 3); drop --use_kernel")
-    for flag, default, item in _NOT_PORTED:
-        if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: ROADMAP.md Queue 1 {item}")
 
 
 def make_scene(args, device):
@@ -307,7 +297,7 @@ class Trainer:
     and its training step."""
 
     def __init__(self, args: argparse.Namespace):
-        _check_ported(args)
+        _check_flags(args)
         self.args = args
         dev = self.device = torch.device(args.device)
         self.scene = make_scene(args, dev)
@@ -355,7 +345,8 @@ class Trainer:
                            for lv in args.levels.split(","))
             self.field = TensoCPRadianceField(
                 aabb=aabb, unbounded=args.unbounded, levels=levels,
-                use_kernel=args.use_kernel, generator=init, device=dev)
+                use_kernel=args.use_kernel, quant_int8=args.quant_int8,
+                generator=init, device=dev)
         self.grid = create_grid(aabb, resolution=grid_res,
                                 contraction_type=contraction, device=dev)
         self.optimizer = torch.optim.Adam(self.field.parameters(), lr=args.lr,

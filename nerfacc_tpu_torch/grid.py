@@ -206,6 +206,22 @@ def _chunked_eval(fn, x: torch.Tensor, chunk: int = 1 << 17) -> torch.Tensor:
     return torch.cat([fn(x[i : i + chunk]) for i in range(0, x.shape[0], chunk)])
 
 
+def _draw_cells(
+    grid: OccupancyGrid, key: torch.Generator, warmup: bool
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cells one update evaluates and their (N, 3) jitter in [0, 1),
+    drawn from ``key``: every cell during warm-up, else ``num_cells // 4``
+    uniform plus as many occupied ones."""
+    if warmup:
+        indices = torch.arange(grid.num_cells, device=grid.occs.device)
+    else:
+        indices = _sample_cells(grid, key, grid.num_cells // 4)
+    jitter = torch.rand(
+        (indices.shape[0], 3), generator=key, device=key.device
+    )
+    return indices, jitter
+
+
 def _update_grid_at(
     grid: OccupancyGrid,
     indices: torch.Tensor,
@@ -271,13 +287,7 @@ def update_grid(
             adaptive, so an untrained field is not pruned to nothing).
     """
     warmup = step < warmup_steps
-    if warmup:
-        indices = torch.arange(grid.num_cells, device=grid.occs.device)
-    else:
-        indices = _sample_cells(grid, key, grid.num_cells // 4)
-    jitter = torch.rand(
-        (indices.shape[0], 3), generator=key, device=key.device
-    )
+    indices, jitter = _draw_cells(grid, key, warmup)
     return _update_grid_at(
         grid, indices, jitter, occ_eval_fn, occ_thre=occ_thre,
         ema_decay=ema_decay, adaptive_thre=adaptive_thre or warmup,

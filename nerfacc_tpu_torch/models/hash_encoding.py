@@ -10,7 +10,10 @@ fits the table, ``(res + 1)^3 <= T``, are indexed densely with stride
 The lookup and its table-only gradient are
 :func:`nerfacc_tpu_torch.ops.hash_gather.hash_encode_lookup`;
 ``pallas_grad=True`` sends the table gradient through the CUDA scatter
-kernel (the JAX package's Pallas switch) instead of ``index_add_``.
+kernel (the JAX package's Pallas switch) instead of ``index_add_``;
+``gather_mode="per_level"`` (on the TPU, one gather per level for the
+gather's rate) reads the same values in the same layout: it is the packed
+gather.
 """
 
 from __future__ import annotations
@@ -122,9 +125,7 @@ class HashEncoder(nn.Module):
         device=None,
     ):
         super().__init__()
-        if gather_mode == "per_level":
-            raise NotImplementedError("gather_mode='per_level' is not ported")
-        if gather_mode != "packed":
+        if gather_mode not in ("packed", "per_level"):
             raise ValueError(f"unknown gather_mode {gather_mode!r}")
         if pallas_grad and n_features != 2:
             raise ValueError(
@@ -132,7 +133,7 @@ class HashEncoder(nn.Module):
                 f"got {n_features}"
             )
         self.n_levels, self.n_features = n_levels, n_features
-        self.pallas_grad = pallas_grad
+        self.pallas_grad, self.gather_mode = pallas_grad, gather_mode
         self.n_entries = 1 << log2_hashmap_size
         res = _level_resolutions(n_levels, base_resolution, per_level_scale)
         self.register_buffer("_res", torch.as_tensor(res), persistent=False)
@@ -156,7 +157,9 @@ class HashEncoder(nn.Module):
                 x, self._res, self._dense, self.n_entries
             )
         # F = 2 and F = 4 read the table rounded to bf16; any other F
-        # reads f32
+        # reads f32. gather_mode "per_level" reads the same values in the
+        # same layout (on the TPU, L gathers for the gather's rate), so it
+        # is the packed gather here
         return hash_encode_lookup(
             self.table, flat_idx, corner_w, self.n_entries,
             self.pallas_grad, packed_gather=self.n_features in (2, 4),

@@ -10,7 +10,9 @@ is zeroed by the selector.
 
 The numerics are the JAX package's. The default path (``use_kernel=False``)
 multiplies a bf16 basis by a bf16 table into bf16 features; the kernel path
-(``use_kernel=True``) produces f32 features, as the Pallas kernel does. The
+(``use_kernel=True``) produces f32 features, as the Pallas kernel does;
+``quant_int8=True`` (before either) takes each axis's product in int8
+steps (:func:`hat_matmul_int8`) into bf16 features. The
 heads round inputs and weights to bf16, accumulate in f32 and round each
 layer's output to bf16, with f32 parameters and an f32 result; their
 gradients round the same way. The kernel path's table gradients come
@@ -55,6 +57,68 @@ def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+class _HatMatmulInt8(torch.autograd.Function):
+    """``hat(u) @ table`` with the JAX package's int8 forward numerics, as
+    two taps per sample; its backward is the exact bf16 table gradient."""
+
+    @staticmethod
+    def forward(ctx, u, table):
+        G, dev = table.shape[0], table.device
+        c127 = torch.tensor(127.0, device=dev)  # a tensor divisor: see below
+        # the int8 basis: v = rint(127 u); 127 hat(v / 127) at node j is
+        # max(0, 127 - |v - 127 j|), nonzero at j0 = floor(v / 127) (weight
+        # 127 - r) and j0 + 1 (weight r), r = v - 127 j0 in [0, 127)
+        v = torch.round(u * 127.0).to(torch.int64)  # half to even, as rint
+        j0 = torch.div(v, 127, rounding_mode="floor")
+        r = v - 127 * j0
+        # per column: s = max|table| / 127, the table in integer steps of s.
+        # A CUDA division by a Python float multiplies by its reciprocal, an
+        # ulp away from the CPU's and JAX's quotient, which rint can turn
+        # into a whole step: divide by a tensor
+        s = table.detach().abs().amax(dim=0, keepdim=True) / c127
+        tq = torch.round(table.detach() / torch.clamp(s, min=1e-20))
+        # the int32 accumulation, exactly: |acc| <= 127 * 127 in f32
+        acc = torch.zeros((u.shape[0], table.shape[1]), device=dev)
+        for j, w in ((j0, 127 - r), (j0 + 1, r)):
+            w = torch.where((j >= 0) & (j < G), w, 0).to(torch.float32)
+            acc = acc + w[:, None] * tq[j.clamp(0, G - 1)]
+        ctx.save_for_backward(u)
+        ctx.grid_size = G
+        return acc * (s / c127)
+
+    @staticmethod
+    def backward(ctx, g):
+        # d_table = bf16(hat(u))^T @ bf16(g), f32 sums: each sample adds
+        # its two exact bf16 x bf16 products; u is positional (zero)
+        (u,) = ctx.saved_tensors
+        G = ctx.grid_size
+        gb = g.to(torch.bfloat16).to(torch.float32)
+        d_table = torch.zeros((G, g.shape[1]), dtype=torch.float32,
+                              device=g.device)
+        j0 = torch.floor(u)
+        for j in (j0, j0 + 1):
+            # the dense basis' entry at node j, as JAX computes it
+            w = torch.clamp(1.0 - torch.abs(u - j), min=0.0)
+            w = w.to(torch.bfloat16).to(torch.float32)
+            inside = (j >= 0) & (j < G)
+            w = torch.where(inside, w, torch.zeros_like(w))
+            d_table.index_add_(0, j.clamp(0, G - 1).to(torch.int64),
+                               w[:, None] * gb)
+        return torch.zeros_like(u), d_table
+
+
+def hat_matmul_int8(u: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``hat(u) @ table`` for (B,) ``u`` in node units ([0, G - 1]) and a
+    (G, R) ``table``, with the JAX package's int8 forward
+    (``_hat_matmul_int8``): the basis rounded to 1/127 of a node, each
+    table column quantised to 127 steps of its largest magnitude, the
+    integer product exact, then scaled back; f32 (B, R). Its backward is
+    the exact bf16 table gradient with f32 sums and a zero gradient for
+    ``u``. Plain PyTorch on both devices: the JAX package's int8 product
+    is XLA's, not a kernel of its own."""
+    return _HatMatmulInt8.apply(u, table)
+
+
 class CPLevel(nn.Module):
     """One CP level: three (G, R) axis tables ``axis0..2``.
 
@@ -63,6 +127,9 @@ class CPLevel(nn.Module):
     Pallas switch; here it selects the CUDA kernels, and the plain twins
     on CPU tensors): K2 saves bf16 residuals for K4's table gradients when
     the tables take a gradient, and K1 runs alone when they do not.
+    ``quant_int8=True`` takes precedence: each axis through
+    :func:`hat_matmul_int8`, rounded to bf16, the product bf16 as on the
+    default path.
     """
 
     def __init__(
@@ -71,10 +138,12 @@ class CPLevel(nn.Module):
         rank: int,
         init_scale: float = 0.2,
         use_kernel: bool = False,
+        quant_int8: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.grid_size, self.rank, self.use_kernel = grid_size, rank, use_kernel
+        self.quant_int8 = quant_int8
         for axis in range(3):
             table = torch.empty(grid_size, rank)
             nn.init.normal_(table, std=init_scale, generator=generator)
@@ -85,6 +154,13 @@ class CPLevel(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, 3) in [0, 1]^3 -> (B, rank)
+        if self.quant_int8:
+            feats = None
+            for axis, table in enumerate(self.tables()):
+                u = hat_matmul_int8(x[:, axis] * (self.grid_size - 1), table)
+                u = u.to(torch.bfloat16)
+                feats = u if feats is None else feats * u
+            return feats
         if self.use_kernel:
             return cp_level_features_res(x, *self.tables())
         feats = None
@@ -144,15 +220,14 @@ class TensoCPRadianceField(nn.Module):
         device=None,
     ):
         super().__init__()
-        if quant_int8:
-            raise NotImplementedError("quant_int8 is not ported yet")
         self.use_viewdirs, self.unbounded = use_viewdirs, unbounded
         self.density_bias = density_bias
         self.register_buffer(
             "aabb", torch.tensor(aabb, dtype=torch.float32), persistent=False
         )
         self.cp_levels = nn.ModuleList(
-            CPLevel(g, r, use_kernel=use_kernel, generator=generator)
+            CPLevel(g, r, use_kernel=use_kernel, quant_int8=quant_int8,
+                    generator=generator)
             for g, r in levels
         )
         feat_dim = sum(r for _, r in levels)

@@ -40,7 +40,7 @@ output stays feature-major ``(N, F * L)`` as in the JAX package (columns
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional
 
 import torch
 
@@ -288,7 +288,7 @@ def hash_encode_lookup(
     corner_w: torch.Tensor,
     n_entries_per_level: int,
     pallas_scatter: bool = False,
-    packed_gather: Union[bool, str] = True,
+    packed_gather: bool = True,
 ) -> torch.Tensor:
     """Multi-level hash-table lookup and trilinear blend, with a backward
     that produces only the table's gradient.
@@ -305,17 +305,13 @@ def hash_encode_lookup(
             instead of per-level ``index_add_``. Needs F = 2: the kernel
             adds feature pairs.
         packed_gather: read the table rounded to bf16 (the JAX package's
-            packed pairs); False reads f32. ``"per_level"`` is not
-            ported.
+            packed pairs); False reads f32. The JAX package's
+            ``gather_mode="per_level"`` reads the same bf16 values in the
+            same layout, so it comes here as True (``HashEncoder``).
 
     Returns:
         (N, F * L) f32 blended features, feature-major.
     """
-    if packed_gather == "per_level":
-        raise NotImplementedError(
-            "the per-level gather variant (gather_mode='per_level') is not "
-            "ported"
-        )
     L, T, F = table.shape
     if T != n_entries_per_level or flat_idx.shape[1] != L * 8:
         raise ValueError(

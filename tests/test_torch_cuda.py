@@ -24,7 +24,14 @@ against CPU: bf16 heads, loss within 1e-4 relative; the resampled
 intervals move with the proposal's density, so the gradients are held
 to the JAX package's bound for the bf16 CP level (5e-2 in L2); with the
 CPU's resampled intervals given to the card's step, only the heads' bf16
-roundings and K4's order of sums differ: 1e-2 in L2.
+roundings and K4's order of sums differ: 1e-2 in L2. The data-parallel
+step in a world of one under NCCL against ``train_step``: loss within
+1e-6 relative, gradients within 1e-5 in relative L2 (K4 and K7 add in
+atomic order). ``quant_int8`` card vs CPU: the forward and the bf16 level
+features bit-equal, the table gradient within 1e-5 of its largest entry
+(atomic order). ``gather_mode="per_level"`` vs packed on the card: the
+forward bit-equal, the backward's inputs bit-equal and its results
+within 1e-5 of the largest entry.
 """
 
 import numpy as np
@@ -33,6 +40,7 @@ import torch
 
 from nerfacc_tpu_torch import _build, render_rays
 from nerfacc_tpu_torch.convert import grid_from_arrays
+from nerfacc_tpu_torch.grid import create_grid
 from nerfacc_tpu_torch.models import (
     DNeRFRadianceField,
     NGPRadianceField,
@@ -1169,3 +1177,195 @@ def test_pinned_upload_matches_a_plain_copy(cuda_device, tmp_path):
             seed=int(rng.randint(0, 2**31)), num_rays=n)
         for a, b in ((rays.origins, o), (rays.viewdirs, d), (px, p)):
             assert torch.equal(a, torch.from_numpy(b).to(cuda_device))
+
+
+def _dryrun_script():
+    """``scripts/dryrun_multichip_torch.py`` (the data-parallel step)."""
+    import sys
+    from pathlib import Path
+
+    scripts = str(Path(__file__).resolve().parent.parent / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import dryrun_multichip_torch
+
+    return dryrun_multichip_torch
+
+
+def _rel_l2(a, b) -> float:
+    return float(torch.linalg.norm(a.double() - b.double())
+                 / torch.linalg.norm(b.double()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tensocp", "ngp"])
+def test_world_of_one_under_nccl_matches_the_single_process_step(
+        cuda_device, tmp_path, model):
+    # the data-parallel step (no grid update) in a world of one under
+    # NCCL against training.train_step from the same weights and rays:
+    # loss within rtol 1e-6, each gradient within relative L2 1e-5 (K4 and
+    # K7 add in atomic order: two single-process runs differ alike)
+    import torch.distributed as dist
+
+    from nerfacc_tpu_torch.parallel import init_distributed, make_mesh
+
+    dry = _dryrun_script()
+    init_distributed(init_method=f"file://{tmp_path / 'store'}",
+                     num_processes=1, process_id=0, timeout=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        assert mesh.groups["data"] is not None  # the collectives run
+        runs = []
+        for data_parallel in (True, False, False):
+            _, grid, (o, d, px), kw = _small_train_scene(cuda_device)
+            if model == "ngp":
+                field = NGPRadianceField(
+                    aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0), n_levels=4,
+                    log2_hashmap_size=13, pallas_grad=True,
+                    generator=torch.Generator().manual_seed(2),
+                    device=cuda_device)
+                kw = dict(kw, field_samples_budget=64 * 12)
+            else:
+                field, *_ = _small_train_scene(cuda_device)
+            opt = torch.optim.Adam(field.parameters(), lr=5e-4)
+            if data_parallel:
+                step = dry.dp_step(field, opt, mesh, kw, None,
+                                   grid_update=False)
+                _, loss, n = step(grid, o, d, px, 0)
+            else:
+                loss, n = train_step(field, opt, grid, o, d, px, **kw)
+            runs.append((float(loss), int(n), {
+                k: p.grad.detach().clone()
+                for k, p in field.named_parameters()}))
+    finally:
+        dist.destroy_process_group()
+    (loss_dp, n_dp, g_dp), (loss_1, n_1, g_1), (_, _, g_2) = runs
+    assert abs(loss_dp - loss_1) <= 1e-6 * loss_1 and n_dp == n_1 > 200
+    for k, want in g_1.items():
+        spread = _rel_l2(g_2[k], want)
+        assert _rel_l2(g_dp[k], want) <= 1e-5, (k, spread)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["tensocp", "ngp"])
+def test_dryrun_script_in_a_world_of_one(cuda_device, model):
+    # the script end to end at full width: one spawned rank under NCCL,
+    # a warm-up and five timed steps with the grid update, then its own
+    # equality check against one process on the whole batch (the script
+    # raises past its bounds)
+    dry = _dryrun_script()
+    (out,) = dry.main(["--world", "1", "--backend", "nccl", "--model",
+                       model])
+    assert out["world"] == 1 and out["backend"] == "nccl"
+    assert len(out["step_ms"]) == dry.STEPS
+    assert all(np.isfinite(out["losses"])) and min(out["live"]) > 0
+    assert 0 < out["occupied"] < 1
+    assert out["check"]["loss_rel"] <= dry.LOSS_RTOL
+    assert out["check"]["grad_rel_l2"] <= dry.GRAD_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [0, 10**9])
+def test_update_grid_distributed_draws_on_the_grid_device(cuda_device, step):
+    # an int key: a grid on the card draws its cells and jitter on the
+    # card, from fold_in(key, rank) made there (warm-up: every cell with
+    # its jitter; after it, the sampled cells); a world of one without a
+    # process group, so the merge is the rank's own update, bit for bit
+    from nerfacc_tpu_torch.grid import _draw_cells, _update_grid_at
+    from nerfacc_tpu_torch.parallel import make_mesh, update_grid_distributed
+    from nerfacc_tpu_torch.parallel.sharding import fold_in
+
+    def ball(x):
+        d = torch.linalg.norm(x - 0.5, dim=-1, keepdim=True)
+        return torch.where(d < 0.3, 1.0, 0.0)
+
+    grid = create_grid([0, 0, 0, 1, 1, 1], resolution=32, device=cuda_device)
+    merged = update_grid_distributed(grid, 7, step, ball,
+                                     mesh=make_mesh(device=cuda_device))
+    key = fold_in(7, 0, device=cuda_device)
+    assert key.device.type == "cuda"
+    idx, jitter = _draw_cells(grid, key, warmup=step < 256)
+    assert jitter.is_cuda
+    want = _update_grid_at(grid, idx, jitter, ball, occ_thre=1e-2,
+                           ema_decay=0.95, adaptive_thre=True)
+    assert merged.occs.is_cuda and torch.equal(merged.occs, want.occs)
+    assert torch.equal(merged.binary, want.binary)
+    assert int(merged.binary.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_quant_int8_on_card_matches_cpu(cuda_device):
+    # the int8 forward is integer arithmetic with tensor divisors: the
+    # card's result equals the CPU's bit for bit; the table gradient adds
+    # exact bf16 products in atomic order on the card: within 1e-5 of its
+    # largest entry
+    from nerfacc_tpu_torch.models.tensorf import hat_matmul_int8
+
+    rng = np.random.RandomState(12)
+    G, R, B = 512, 128, 262144
+    u = torch.as_tensor((rng.rand(B) * (G - 1)).astype(np.float32))
+    table = torch.as_tensor((rng.randn(G, R) * 0.2).astype(np.float32))
+    g = torch.as_tensor(rng.randn(B, R).astype(np.float32)).to(
+        torch.bfloat16).float()
+    out, grads = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        t = table.to(dev).requires_grad_(True)
+        y = hat_matmul_int8(u.to(dev), t)
+        y.backward(g.to(dev))
+        out.append(y.detach().cpu())
+        grads.append(t.grad.cpu())
+    assert torch.equal(out[0], out[1])
+    scale = float(grads[1].abs().max())
+    assert float((grads[0] - grads[1]).abs().max()) <= GRAD_REL * scale
+    # the flagship field's levels: bf16 features equal
+    fields = [TensoCPRadianceField(
+        aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0), quant_int8=True,
+        generator=torch.Generator().manual_seed(3), device=dev)
+        for dev in (cuda_device, torch.device("cpu"))]
+    xu = torch.as_tensor(rng.rand(65536, 3).astype(np.float32))
+    with torch.no_grad():
+        for a, b in zip(fields[0].cp_levels, fields[1].cp_levels):
+            fa, fb = a(xu.to(cuda_device)).cpu(), b(xu)
+            assert fa.dtype == torch.bfloat16 and torch.equal(fa, fb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pallas_grad", [False, True])
+def test_per_level_gather_equals_packed_on_card(cuda_device, pallas_grad,
+                                                monkeypatch):
+    # the reference NGP encoder (16 levels x 2^19 entries): the forward is
+    # bit-equal; the backward gets bit-equal inputs (the same function of
+    # them: K7 or index_add_, whose atomics add in run order), and its
+    # results agree within 1e-5 of the largest entry
+    from nerfacc_tpu_torch.models import HashEncoder
+    from nerfacc_tpu_torch.ops import hash_gather as hg
+
+    seen = []
+    name = "hash_grad_scatter_levels" if pallas_grad else "_index_add_levels"
+    real = getattr(hg, name)
+
+    def record(*args):
+        seen.append([a.clone() for a in args])
+        return real(*args)
+
+    record.launches = 0
+    monkeypatch.setattr(hg, name, record)
+    x = torch.rand(65536, 3, generator=torch.Generator().manual_seed(5))
+    g = torch.randn(65536, 32, generator=torch.Generator().manual_seed(6))
+    out, grads = [], []
+    for mode in ("packed", "per_level"):
+        enc = HashEncoder(pallas_grad=pallas_grad, gather_mode=mode,
+                          generator=torch.Generator().manual_seed(4),
+                          device=cuda_device)
+        y = enc(x.to(cuda_device))
+        (y * g.to(cuda_device)).sum().backward()
+        out.append(y.detach())
+        grads.append(enc.table.grad)
+    assert torch.equal(out[0], out[1])
+    assert len(seen) == 2
+    for a, b in zip(*seen):
+        assert torch.equal(a, b)
+    scale = float(grads[0].abs().max())
+    assert scale > 0
+    assert float((grads[1] - grads[0]).abs().max()) <= GRAD_REL * scale

@@ -364,23 +364,69 @@ def test_f4_table_gradient_matches_jax():
         np.asarray(want["params"]["table"]), rtol=1e-4, atol=1e-6)
 
 
-def test_unported_and_unsupported_encoder_options_raise():
+def test_encoder_options():
+    # every option of the JAX encoder is ported: gather_mode "per_level"
+    # constructs and computes; what neither package supports raises
     # the kernel adds feature pairs: F = 4 cannot take it
     with pytest.raises(ValueError, match="n_features == 2"):
         HashEncoder(n_features=4, pallas_grad=True, device="cpu", **SMALL)
-    with pytest.raises(NotImplementedError):
-        HashEncoder(gather_mode="per_level", device="cpu", **SMALL)
-    enc = HashEncoder(n_features=4, device="cpu", **SMALL)
+    with pytest.raises(ValueError, match="gather_mode"):
+        HashEncoder(gather_mode="per_row", device="cpu", **SMALL)
     x = torch.rand(5, 3)
+    per_level = HashEncoder(gather_mode="per_level", device="cpu", **SMALL)
+    out = per_level(x)
+    assert per_level.gather_mode == "per_level"
+    assert out.shape == (5, 8) and bool(torch.isfinite(out).all())
+    enc = HashEncoder(n_features=4, device="cpu", **SMALL)
     idx, w = hash_grid_indices(x, enc._res, enc._dense, enc.n_entries)
     with pytest.raises(ValueError, match="n_features == 2"):
         hash_encode_lookup(enc.table, idx, w, enc.n_entries,
                            pallas_scatter=True)
-    with pytest.raises(NotImplementedError):
-        hash_encode_lookup(enc.table, idx, w, enc.n_entries,
-                           packed_gather="per_level")
     with pytest.raises(ValueError):
         hash_encode_lookup(enc.table, idx, w, enc.n_entries * 2)
+
+
+@pytest.mark.parametrize("n_features,pallas_grad",
+                         [(2, False), (2, True), (4, False)])
+def test_per_level_gather_equals_packed(n_features, pallas_grad):
+    # the twin of tests/test_models.py's per-level test, held tighter: the
+    # per-level encoder reads the packed gather's bf16 values in its
+    # layout, so the output and the table gradient are bit-equal
+    x = torch.as_tensor(_points(64, [4, 5, 8, 12], seed=3))
+    g = torch.as_tensor(
+        np.random.RandomState(9).randn(64, 4 * n_features).astype(np.float32))
+    out, grads = {}, {}
+    for mode in ("packed", "per_level"):
+        enc = HashEncoder(n_features=n_features, pallas_grad=pallas_grad,
+                          gather_mode=mode, device="cpu",
+                          generator=torch.Generator().manual_seed(1), **SMALL)
+        out[mode] = enc(x)
+        (out[mode] * g).sum().backward()
+        grads[mode] = enc.table.grad
+    assert torch.equal(out["per_level"], out["packed"])
+    assert torch.equal(grads["per_level"], grads["packed"])
+    assert float(grads["packed"].abs().max()) > 0
+
+
+@pytest.mark.parametrize("pallas_grad", [False, True])
+def test_per_level_encoder_matches_jax(pallas_grad):
+    # the JAX package's gather_mode="per_level", forward and table
+    # gradient, at the bounds of the packed encoder's tests above
+    jenc, params, tenc = _encoders(2, _randn, pallas_grad=pallas_grad,
+                                   gather_mode="per_level", **SMALL)
+    x = _points(203, [4, 5, 8, 12], seed=2)
+    g = np.random.RandomState(8).randn(203, 8).astype(np.float32)
+    want = np.asarray(jenc.apply(params, jnp.asarray(x)))
+    got = tenc(torch.as_tensor(x))
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-6 * np.abs(want).max())
+    want_g = jax.grad(
+        lambda p: jnp.sum(jenc.apply(p, jnp.asarray(x)) * g))(params)
+    want_g = np.asarray(want_g["params"]["table"])
+    (got * torch.as_tensor(g)).sum().backward()
+    assert np.abs(want_g).max() > 0.1
+    np.testing.assert_allclose(ngp_table_to_flax(tenc.table.grad.numpy()),
+                               want_g, rtol=1e-4, atol=1e-6)
 
 
 def _ngp_pair(unbounded, seed=4, **kw):

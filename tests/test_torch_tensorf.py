@@ -6,6 +6,11 @@ and round each layer's output to bf16 (XLA's CPU bf16 dot rounds once, as
 the port does). Measured agreement is to f32 rounding (sigma ~1e-7
 relative), so rgb and sigma are held to rtol 1e-4 / atol 1e-5: f32
 summation order passes, a different bf16 rounding rule (~1e-3) fails.
+
+``quant_int8``: its forward is integer arithmetic exact in f32 on both
+sides, so it is expected bit-equal (held to rtol 1e-6 / atol 1e-7); its
+table gradient sums exact bf16 x bf16 products in another order than
+XLA's dot: rtol 1e-4 / atol 1e-6.
 """
 
 import jax
@@ -18,6 +23,7 @@ from nerfacc_tpu.models import TensoCPRadianceField as JaxTensoCP
 from nerfacc_tpu.models import contract_to_unisphere as jax_unisphere
 from nerfacc_tpu.models import trunc_exp as jax_trunc_exp
 from nerfacc_tpu.models.ngp import spherical_harmonics_deg4 as jax_sh
+from nerfacc_tpu.models.tensorf import _hat_matmul_int8 as jax_hat_int8
 from nerfacc_tpu_torch.convert import tensocp_from_flax
 from nerfacc_tpu_torch.models import (
     TensoCPRadianceField,
@@ -25,6 +31,7 @@ from nerfacc_tpu_torch.models import (
     spherical_harmonics_deg4,
     trunc_exp,
 )
+from nerfacc_tpu_torch.models.tensorf import hat_matmul_int8
 
 torch.set_num_threads(1)
 
@@ -150,3 +157,63 @@ def test_query_opacity_matches_jax(use_kernel):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-5 * step)
     assert torch.equal(got, dens * step) and float(got.max()) > 0
+
+
+@pytest.mark.parametrize("grid_size", [16, 128, 512])
+def test_hat_matmul_int8_matches_jax(grid_size):
+    rng = np.random.RandomState(grid_size)
+    B, R = 1024, 32
+    u = (rng.rand(B) * (grid_size - 1)).astype(np.float32)
+    # the ends, and points half an int8 step off a node (rint's ties)
+    u[:4] = [0.0, grid_size - 1, 0.5 / 127, (grid_size - 1) - 0.5 / 127]
+    table = (rng.randn(grid_size, R) * 0.2).astype(np.float32)
+    table[:, 3] = 0.0  # a zero column: scale 0
+    g = np.asarray(jnp.asarray(rng.randn(B, R).astype(np.float32))
+                   .astype(jnp.bfloat16).astype(jnp.float32))
+    want, vjp = jax.vjp(jax_hat_int8, jnp.asarray(u), jnp.asarray(table))
+    want_du, want_dt = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    ut = torch.tensor(u, requires_grad=True)
+    tt = torch.tensor(table, requires_grad=True)
+    got = hat_matmul_int8(ut, tt)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-6, atol=1e-7)
+    got.backward(torch.tensor(g))
+    np.testing.assert_allclose(tt.grad.numpy(), want_dt, rtol=1e-4,
+                               atol=1e-6)
+    assert np.abs(want_dt).max() > 1.0
+    # u is positional: a zero cotangent on both sides
+    assert not want_du.any() and not bool(ut.grad.any())
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_tensocp_quant_int8_matches_jax(use_kernel):
+    # quant_int8 takes precedence over use_kernel, as in the JAX package
+    jfield, params, tfield, x, d = _pair(use_kernel, quant_int8=True,
+                                         density_bias=1.0)
+    rgb_j, sig_j = jfield.apply(params, jnp.asarray(x), jnp.asarray(d))
+    xt, dt = torch.as_tensor(x), torch.as_tensor(d)
+    rgb_t, sig_t = tfield(xt, dt)
+    np.testing.assert_allclose(rgb_t.detach().numpy(), np.asarray(rgb_j),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(sig_t.detach().numpy(), np.asarray(sig_j),
+                               rtol=1e-6, atol=1e-7)
+    xu = torch.as_tensor(np.clip((x + 1.0) / 2.0, 0.0, 1.0))
+    with torch.no_grad():
+        feats = tfield.cp_levels[1](xu)
+    assert feats.dtype == torch.bfloat16  # the product stays bf16
+    # the tables' gradients through the heads
+    w = np.random.RandomState(3).rand(256, 3).astype(np.float32)
+
+    def loss_j(p):
+        rgb, sig = jfield.apply(p, jnp.asarray(x), jnp.asarray(d))
+        return jnp.sum(rgb * w) + jnp.sum(sig)
+
+    want = jax.tree_util.tree_map(np.asarray, jax.grad(loss_j)(params))
+    ((rgb_t * torch.as_tensor(w)).sum() + sig_t.sum()).backward()
+    for i, level in enumerate(tfield.cp_levels):
+        for a in range(3):
+            ref = want["params"][f"level{i}"][f"axis{a}"]
+            assert np.abs(ref).max() > 0
+            np.testing.assert_allclose(
+                getattr(level, f"axis{a}").grad.numpy(), ref, rtol=1e-4,
+                atol=1e-6, err_msg=f"level{i} axis{a}")

@@ -306,9 +306,23 @@ def test_trainer_steps_on_cpu(trainer, capsys):
 @pytest.mark.parametrize("flags", [
     ["--quant_int8"], ["--model", "ngp", "--ngp_gather_mode", "per_level"],
 ])
-def test_trainer_refuses_what_it_does_not_port(trainer, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        trainer.Trainer(trainer.parse_args(TINY + flags))
+def test_trainer_takes_quant_int8_and_per_level(trainer, flags):
+    # the trainer ports every flag of the JAX trainer: it takes the two it
+    # once refused, hands them to its field, and trains a few finite,
+    # falling steps with them
+    base = TINY_NGP if "ngp" in flags else TINY
+    t = trainer.Trainer(trainer.parse_args(base + flags))
+    if "ngp" in flags:
+        assert t.field.encoder.gather_mode == "per_level"
+    else:
+        assert all(level.quant_int8 for level in t.field.cp_levels)
+    t.update_grid(0)
+    rays, pixels = t.scene.sample_batch(64)
+    losses = [float(t.train_step(rays.origins, rays.viewdirs, pixels)[0])
+              for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    for p in t.field.parameters():
+        assert bool(torch.isfinite(p).all())
 
 
 @pytest.fixture(scope="module")
