@@ -14,6 +14,7 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 
 import torch
 
+from . import tracing
 from .contraction import ContractionType, contract, contract_inv
 
 # dilation radii the marcher probes with (``probe_dilation``)
@@ -286,12 +287,14 @@ def update_grid(
             binarizes at ``occ_thre`` after warmup (warmup is always
             adaptive, so an untrained field is not pruned to nothing).
     """
-    warmup = step < warmup_steps
-    indices, jitter = _draw_cells(grid, key, warmup)
-    return _update_grid_at(
-        grid, indices, jitter, occ_eval_fn, occ_thre=occ_thre,
-        ema_decay=ema_decay, adaptive_thre=adaptive_thre or warmup,
-    )
+    with tracing.span("update_grid"):
+        warmup = step < warmup_steps
+        indices, jitter = _draw_cells(grid, key, warmup)
+        tracing.count("grid_cells", indices.shape[0])
+        return _update_grid_at(
+            grid, indices, jitter, occ_eval_fn, occ_thre=occ_thre,
+            ema_decay=ema_decay, adaptive_thre=adaptive_thre or warmup,
+        )
 
 
 def every_n_step(

@@ -11,6 +11,8 @@ import math
 import torch
 from torch import nn
 
+from .. import tracing
+
 
 class SinusoidalEncoder(nn.Module):
     """NeRF positional encoding: ``[x, sin(2^i x), cos(2^i x)]`` for ``i``
@@ -35,14 +37,15 @@ class SinusoidalEncoder(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.max_deg == self.min_deg:
             return x
-        scales = torch.tensor(
-            [2.0**i for i in range(self.min_deg, self.max_deg)],
-            dtype=x.dtype, device=x.device,
-        )
-        xb = (x[..., None, :] * scales[:, None]).reshape(
-            x.shape[:-1] + ((self.max_deg - self.min_deg) * self.x_dim,)
-        )
-        latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
-        if self.use_identity:
-            latent = torch.cat([x, latent], dim=-1)
-        return latent
+        with tracing.span("encoder"):
+            scales = torch.tensor(
+                [2.0**i for i in range(self.min_deg, self.max_deg)],
+                dtype=x.dtype, device=x.device,
+            )
+            xb = (x[..., None, :] * scales[:, None]).reshape(
+                x.shape[:-1] + ((self.max_deg - self.min_deg) * self.x_dim,)
+            )
+            latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
+            if self.use_identity:
+                latent = torch.cat([x, latent], dim=-1)
+            return latent

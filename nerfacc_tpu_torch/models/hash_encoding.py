@@ -24,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import tracing
 from ..ops.hash_gather import hash_encode_lookup
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -152,15 +153,16 @@ class HashEncoder(nn.Module):
         return self.n_levels * self.n_features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        with torch.no_grad():
-            flat_idx, corner_w = hash_grid_indices(
-                x, self._res, self._dense, self.n_entries
+        with tracing.span("encoder"):
+            with torch.no_grad():
+                flat_idx, corner_w = hash_grid_indices(
+                    x, self._res, self._dense, self.n_entries
+                )
+            # F = 2 and F = 4 read the table rounded to bf16; any other F
+            # reads f32. gather_mode "per_level" reads the same values in
+            # the same layout (on the TPU, L gathers for the gather's
+            # rate), so it is the packed gather here
+            return hash_encode_lookup(
+                self.table, flat_idx, corner_w, self.n_entries,
+                self.pallas_grad, packed_gather=self.n_features in (2, 4),
             )
-        # F = 2 and F = 4 read the table rounded to bf16; any other F
-        # reads f32. gather_mode "per_level" reads the same values in the
-        # same layout (on the TPU, L gathers for the gather's rate), so it
-        # is the packed gather here
-        return hash_encode_lookup(
-            self.table, flat_idx, corner_w, self.n_entries,
-            self.pallas_grad, packed_gather=self.n_features in (2, 4),
-        )

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import tracing
 from ..ops.cp_encoder import cp_level_features_res
 from .ngp import (
     contract_to_unisphere,
@@ -153,6 +154,10 @@ class CPLevel(nn.Module):
         return self.axis0, self.axis1, self.axis2
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with tracing.span("encoder"):
+            return self._features(x)
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, 3) in [0, 1]^3 -> (B, rank)
         if self.quant_int8:
             feats = None

@@ -20,8 +20,11 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 
-def compact_live_slots(masks: torch.Tensor, m_budget: int):
+
+def compact_live_slots(masks: torch.Tensor, m_budget: int,
+                       counters=(None, None)):
     """Plan a compaction of the live slots of ``masks`` into ``m_budget``
     compact positions (flat row-major order: front to back within each
     ray, rays in batch order).
@@ -36,6 +39,8 @@ def compact_live_slots(masks: torch.Tensor, m_budget: int):
     Args:
         masks: (R, K) bool dense slot liveness.
         m_budget: compact capacity M.
+        counters: names of the :mod:`~nerfacc_tpu_torch.tracing` counters
+            that take the live slots and the kept ones (None: neither).
 
     Returns:
         pos: (M,) int64 flat slot index of each compact entry (0 for
@@ -75,6 +80,9 @@ def compact_live_slots(masks: torch.Tensor, m_budget: int):
     pos.scatter_(0, dest, torch.arange(n, device=dev))
     ok = torch.arange(m_budget, device=dev) < kept
     dropped = (count - kept).to(torch.int32)
+    for name, value in zip(counters, (count, kept)):
+        if name is not None:
+            tracing.count(name, value)
     return pos[:m_budget], ok, rank, keep.reshape(masks.shape), dropped
 
 

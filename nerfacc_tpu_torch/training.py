@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from . import tracing
 from .utils import render_rays
 
 
@@ -100,13 +101,18 @@ def train_step(field, optimizer, grid, rays_o, rays_d, pixels,
     ``optimizer.step()``. Returns ``(loss, n_samples)`` as tensors on the
     rays' device (no host sync); the parameters' ``.grad`` hold this
     step's gradients afterwards."""
-    optimizer.zero_grad(set_to_none=True)
-    colors, _, _, n_samples, sel = render_rays(
-        field, rays_o, rays_d, grid=grid,
-        render_bkgd=torch.ones(3, device=rays_o.device), aux=pixels,
-        return_compact=True, **render_kwargs,
-    )
-    loss = compact_mse(colors, sel, pixels)
-    loss.backward()
-    optimizer.step()
+    with tracing.span("train_step"):
+        with tracing.span("optimizer"):
+            optimizer.zero_grad(set_to_none=True)
+        colors, _, _, n_samples, sel = render_rays(
+            field, rays_o, rays_d, grid=grid,
+            render_bkgd=torch.ones(3, device=rays_o.device), aux=pixels,
+            return_compact=True, **render_kwargs,
+        )
+        with tracing.span("loss"):
+            loss = compact_mse(colors, sel, pixels)
+        with tracing.span("backward"):
+            loss.backward()
+        with tracing.span("optimizer"):
+            optimizer.step()
     return loss.detach(), n_samples

@@ -21,6 +21,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import tracing
 from .ops.sample_compact import compact_live_slots, expand_compact
 from .ray_marching import (
     _resolve_t_range,
@@ -96,7 +97,7 @@ def _dense_field_query(field, x, rays_d=None, timestamps=None,
 
 def _compact_field_query(
     field, rays_o, rays_d, t_starts, t_ends, masks, m_budget,
-    timestamps=None, density_only=False,
+    timestamps=None, density_only=False, counters=(None, None),
 ):
     """Query the field on the live slots only (gather-bound encoders).
 
@@ -105,10 +106,12 @@ def _compact_field_query(
     the dense layout. Returns ``(rgbs (R, K, 3), sigmas (R, K), masks,
     dropped)``, or ``(sigmas, masks, dropped)`` with ``density_only``:
     ``masks`` excludes any over-budget drops and ``dropped`` counts them.
+    ``counters`` name the tracing counters of the live and the kept slots.
     """
     R, K = masks.shape
     m_budget = min(m_budget, R * K)  # a budget beyond the buffer is free
-    pos, ok, rank, keep, dropped = compact_live_slots(masks, m_budget)
+    pos, ok, rank, keep, dropped = compact_live_slots(masks, m_budget,
+                                                     counters)
     tc = ((t_starts + t_ends) * 0.5).reshape(-1)[pos]  # (M,)
     ridx = pos // K  # (M,) each compact sample's ray
     dc = rays_d[ridx]
@@ -200,166 +203,204 @@ def render_rays(
     n_rays = rays_o.shape[0]
     if stratified and key is None:
         raise ValueError("stratified=True requires a torch.Generator `key`.")
-    with torch.no_grad():
-        t_min, t_max = _resolve_t_range(
-            rays_o, rays_d, None, None, scene_aabb, near_plane, far_plane,
-            stratified, key, render_step_size,
-            cone_angle=cone_angle, dt_max=dt_max,
-            max_samples_per_ray=max_samples_per_ray,
-        )
-    S = max_samples_per_ray
-
-    live_groups = None
-    ray_sel = None  # (indices, valid) of compacted rays
-    n_out = n_rays
-    if (
-        compact_rays_fraction is not None
-        and grid is not None
-        and coarse_stride > 1
-    ):
-        live_g = probe_live_groups(
-            rays_o, rays_d, t_min, t_max, grid,
-            render_step_size=render_step_size, cone_angle=cone_angle,
-            max_samples_per_ray=S, coarse_stride=coarse_stride,
-            dt_max=dt_max, probe_dilation=probe_dilation,
-            probe_groups=probe_groups,
-        )
-        hit = live_g.sum(dim=1) > 0
-        H = max(1, int(round(n_rays * compact_rays_fraction)))
-        # the first H hit rays; slots past the last hit point at the last
-        # ray and are invalid
-        posr, okr, _ = select_slots(hit[None, :], H, decimate=False)
-        # int32 as the JAX package returns it; PyTorch's row gathers and
-        # index_copy_ take int64, cast where they index
-        ray_sel = (posr[0], okr[0])
-        ridx = posr[0].long()
-        rays_o, rays_d = rays_o[ridx], rays_d[ridx]
-        t_min, t_max = t_min[ridx], t_max[ridx]
-        live_groups = live_g[ridx]
-        if timestamps is not None:
-            timestamps = timestamps[ridx]
-        if aux is not None:
-            aux = aux.to(torch.float32)[ridx]
-        n_rays = H
-
-    K = S if samples_budget is None else min(
-        S, max(1, -(-samples_budget // n_rays))
-    )
-    segs = march_rays(
-        rays_o, rays_d, t_min, t_max, grid,
-        render_step_size=render_step_size,
-        cone_angle=cone_angle,
-        max_samples_per_ray=S,
-        slots_per_ray=K,
-        coarse_stride=coarse_stride if grid is not None else 1,
-        dt_max=dt_max,
-        live_groups=live_groups,
-        probe_dilation=probe_dilation,
-        exact_recheck=exact_recheck,
-        probe_groups=probe_groups,
-        use_pallas=use_pallas,
-    )
-    if ray_sel is not None:
-        segs = segs._replace(masks=segs.masks & ray_sel[1][:, None])
-
-    two_stage = prefilter_sigma and visible_samples_budget is not None
-    if two_stage:
-        # stage 1: a density pass without gradients -> visibility cull ->
-        # re-selection into the smaller visible budget
-        with torch.no_grad():
-            if field_samples_budget is not None:
-                sigmas, keep1, _ = _compact_field_query(
-                    field, rays_o, rays_d, segs.t_starts, segs.t_ends,
-                    segs.masks, field_samples_budget,
-                    timestamps=timestamps, density_only=True,
+    with tracing.span("render"):
+        tracing.count("rays", n_rays)
+        with tracing.span("march"):
+            with torch.no_grad():
+                t_min, t_max = _resolve_t_range(
+                    rays_o, rays_d, None, None, scene_aabb, near_plane,
+                    far_plane, stratified, key, render_step_size,
+                    cone_angle=cone_angle, dt_max=dt_max,
+                    max_samples_per_ray=max_samples_per_ray,
                 )
-                segs = segs._replace(masks=keep1)
+            S = max_samples_per_ray
+
+            live_groups = None
+            ray_sel = None  # (indices, valid) of compacted rays
+            n_out = n_rays
+            if (
+                compact_rays_fraction is not None
+                and grid is not None
+                and coarse_stride > 1
+            ):
+                live_g = probe_live_groups(
+                    rays_o, rays_d, t_min, t_max, grid,
+                    render_step_size=render_step_size,
+                    cone_angle=cone_angle, max_samples_per_ray=S,
+                    coarse_stride=coarse_stride, dt_max=dt_max,
+                    probe_dilation=probe_dilation, probe_groups=probe_groups,
+                )
+                hit = live_g.sum(dim=1) > 0
+                H = max(1, int(round(n_rays * compact_rays_fraction)))
+                # the first H hit rays; slots past the last hit point at
+                # the last ray and are invalid
+                posr, okr, _ = select_slots(hit[None, :], H, decimate=False)
+                # int32 as the JAX package returns it; PyTorch's row
+                # gathers and index_copy_ take int64, cast where they index
+                ray_sel = (posr[0], okr[0])
+                if tracing.enabled():  # a reduction of its own
+                    tracing.count("rays_hit", okr[0].sum())
+                ridx = posr[0].long()
+                rays_o, rays_d = rays_o[ridx], rays_d[ridx]
+                t_min, t_max = t_min[ridx], t_max[ridx]
+                live_groups = live_g[ridx]
+                if timestamps is not None:
+                    timestamps = timestamps[ridx]
+                if aux is not None:
+                    aux = aux.to(torch.float32)[ridx]
+                n_rays = H
             else:
-                x = _dense_positions(
-                    rays_o, rays_d, segs.t_starts, segs.t_ends
-                )
-                sigmas = _dense_field_query(
-                    field, x, timestamps=timestamps, density_only=True
-                )
-            alphas = 1.0 - torch.exp(-sigmas * segs.deltas)
-            vis = render_visibility_dense(
-                alphas, segs.masks,
-                early_stop_eps=early_stop_eps, alpha_thre=alpha_thre,
+                tracing.count("rays_hit", n_rays)
+
+            K = S if samples_budget is None else min(
+                S, max(1, -(-samples_budget // n_rays))
             )
-            K2 = min(K, max(1, -(-visible_samples_budget // n_rays)))
-            segs = reselect_visible(
-                segs._replace(masks=segs.masks & vis), K2,
+            segs = march_rays(
+                rays_o, rays_d, t_min, t_max, grid,
+                render_step_size=render_step_size,
+                cone_angle=cone_angle,
+                max_samples_per_ray=S,
+                slots_per_ray=K,
+                coarse_stride=coarse_stride if grid is not None else 1,
+                dt_max=dt_max,
+                live_groups=live_groups,
+                probe_dilation=probe_dilation,
+                exact_recheck=exact_recheck,
+                probe_groups=probe_groups,
                 use_pallas=use_pallas,
             )
+            if ray_sel is not None:
+                segs = segs._replace(masks=segs.masks & ray_sel[1][:, None])
+            # the march's live slots: a compaction of the field counts
+            # them; without one, a reduction of their own
+            march_live = None
+            if field_samples_budget is None and tracing.enabled():
+                march_live = segs.masks.sum()
+                tracing.count("march_live", march_live)
 
-    t_starts, t_ends, deltas = segs.t_starts, segs.t_ends, segs.deltas
-    if field_samples_budget is not None:
-        rgbs, sigmas, masks, field_dropped = _compact_field_query(
-            field, rays_o, rays_d, t_starts, t_ends, segs.masks,
-            field_samples_budget, timestamps=timestamps,
-        )
-    else:
-        x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
-        rgbs, sigmas = _dense_field_query(
-            field, x, rays_d=rays_d, timestamps=timestamps
-        )
-        masks = segs.masks
-        field_dropped = torch.zeros(
-            (), dtype=torch.int32, device=masks.device
-        )
-    if prefilter_sigma and not two_stage:
-        # one field pass: the cull only refines the composite's mask
-        alphas = 1.0 - torch.exp(-sigmas.detach() * deltas)
-        masks = masks & render_visibility_dense(
-            alphas, masks, early_stop_eps=early_stop_eps,
-            alpha_thre=alpha_thre,
-        )
-    weights = render_weight_from_density_dense(
-        t_starts, t_starts + deltas, sigmas, masks=masks
-    )
-    colors = accumulate_along_rays_dense(weights, values=rgbs, masks=masks)
-    opacities = accumulate_along_rays_dense(weights, masks=masks)
-    t_mid = (t_starts + t_ends) * 0.5
-    depths = accumulate_along_rays_dense(
-        weights, values=t_mid[..., None], masks=masks
-    )
-    if render_bkgd is not None:
-        colors = colors + render_bkgd * (1.0 - opacities)
-    extras = None
-    if return_extras:
-        extras = {
-            "weights": weights, "t_starts": t_starts, "t_ends": t_ends,
-            "deltas": deltas, "masks": masks,
-            "field_budget_dropped": field_dropped,
-        }
+        two_stage = prefilter_sigma and visible_samples_budget is not None
+        if two_stage:
+            # stage 1: a density pass without gradients -> visibility cull
+            # -> re-selection into the smaller visible budget
+            with torch.no_grad():
+                with tracing.span("density_pass"):
+                    if field_samples_budget is not None:
+                        tracing.count("density_rows", min(
+                            field_samples_budget, segs.masks.numel()))
+                        sigmas, keep1, _ = _compact_field_query(
+                            field, rays_o, rays_d, segs.t_starts,
+                            segs.t_ends, segs.masks, field_samples_budget,
+                            timestamps=timestamps, density_only=True,
+                            counters=("march_live", "density_live"),
+                        )
+                        segs = segs._replace(masks=keep1)
+                    else:
+                        tracing.count("density_rows", segs.masks.numel())
+                        if march_live is not None:
+                            tracing.count("density_live", march_live)
+                        x = _dense_positions(
+                            rays_o, rays_d, segs.t_starts, segs.t_ends
+                        )
+                        sigmas = _dense_field_query(
+                            field, x, timestamps=timestamps,
+                            density_only=True,
+                        )
+                with tracing.span("cull"):
+                    alphas = 1.0 - torch.exp(-sigmas * segs.deltas)
+                    vis = render_visibility_dense(
+                        alphas, segs.masks,
+                        early_stop_eps=early_stop_eps, alpha_thre=alpha_thre,
+                    )
+                    K2 = min(K, max(1, -(-visible_samples_budget // n_rays)))
+                    segs = reselect_visible(
+                        segs._replace(masks=segs.masks & vis), K2,
+                        use_pallas=use_pallas,
+                    )
 
-    if return_compact:
-        ridx, ray_ok = ray_sel if ray_sel is not None else (
-            torch.arange(n_rays, dtype=torch.int32, device=masks.device),
-            torch.ones((n_rays,), dtype=torch.bool, device=masks.device),
-        )
-        sel = {"ray_indices": ridx, "ray_ok": ray_ok, "aux": aux}
-        if return_extras:
-            sel["extras"] = extras
-        return colors, opacities, depths, masks.sum(), sel
+        t_starts, t_ends, deltas = segs.t_starts, segs.t_ends, segs.deltas
+        with tracing.span("field"):
+            if field_samples_budget is not None:
+                tracing.count("field_rows", min(field_samples_budget,
+                                                segs.masks.numel()))
+                rgbs, sigmas, masks, field_dropped = _compact_field_query(
+                    field, rays_o, rays_d, t_starts, t_ends, segs.masks,
+                    field_samples_budget, timestamps=timestamps,
+                    counters=(None if two_stage else "march_live", None),
+                )
+                tracing.count("field_budget_dropped", field_dropped)
+            else:
+                tracing.count("field_rows", segs.masks.numel())
+                x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
+                rgbs, sigmas = _dense_field_query(
+                    field, x, rays_d=rays_d, timestamps=timestamps
+                )
+                masks = segs.masks
+                field_dropped = torch.zeros(
+                    (), dtype=torch.int32, device=masks.device
+                )
+        if prefilter_sigma and not two_stage:
+            # one field pass: the cull only refines the composite's mask
+            with tracing.span("cull"):
+                alphas = 1.0 - torch.exp(-sigmas.detach() * deltas)
+                masks = masks & render_visibility_dense(
+                    alphas, masks, early_stop_eps=early_stop_eps,
+                    alpha_thre=alpha_thre,
+                )
+        with tracing.span("composite"):
+            weights = render_weight_from_density_dense(
+                t_starts, t_starts + deltas, sigmas, masks=masks
+            )
+            colors = accumulate_along_rays_dense(
+                weights, values=rgbs, masks=masks)
+            opacities = accumulate_along_rays_dense(weights, masks=masks)
+            t_mid = (t_starts + t_ends) * 0.5
+            depths = accumulate_along_rays_dense(
+                weights, values=t_mid[..., None], masks=masks
+            )
+            if render_bkgd is not None:
+                colors = colors + render_bkgd * (1.0 - opacities)
+            n_samples = masks.sum()
+            tracing.count("field_live", n_samples)
+            extras = None
+            if return_extras:
+                extras = {
+                    "weights": weights, "t_starts": t_starts,
+                    "t_ends": t_ends, "deltas": deltas, "masks": masks,
+                    "field_budget_dropped": field_dropped,
+                }
 
-    if ray_sel is not None:
-        # expand back to the full batch: rays without live samples render
-        # pure background with zero opacity and depth. Invalid selection
-        # slots write into an extra drop row, cut off after, so no real
-        # row is written by them
-        ridx, ray_ok = ray_sel
-        dest = torch.where(ray_ok, ridx, torch.full_like(ridx, n_out)).long()
+            if return_compact:
+                ridx, ray_ok = ray_sel if ray_sel is not None else (
+                    torch.arange(n_rays, dtype=torch.int32,
+                                 device=masks.device),
+                    torch.ones((n_rays,), dtype=torch.bool,
+                               device=masks.device),
+                )
+                sel = {"ray_indices": ridx, "ray_ok": ray_ok, "aux": aux}
+                if return_extras:
+                    sel["extras"] = extras
+                return colors, opacities, depths, n_samples, sel
 
-        def expand(vals, fill):
-            fill = torch.as_tensor(fill, dtype=vals.dtype, device=vals.device)
-            buf = torch.broadcast_to(fill, (n_out + 1,) + vals.shape[1:])
-            return buf.clone().index_copy_(0, dest, vals)[:n_out]
+            if ray_sel is not None:
+                # expand back to the full batch: rays without live samples
+                # render pure background with zero opacity and depth.
+                # Invalid selection slots write into an extra drop row, cut
+                # off after, so no real row is written by them
+                ridx, ray_ok = ray_sel
+                dest = torch.where(
+                    ray_ok, ridx, torch.full_like(ridx, n_out)).long()
 
-        colors = expand(colors, 0.0 if render_bkgd is None else render_bkgd)
-        opacities = expand(opacities, 0.0)
-        depths = expand(depths, 0.0)
-    n_samples = masks.sum()
+                def expand(vals, fill):
+                    fill = torch.as_tensor(fill, dtype=vals.dtype,
+                                           device=vals.device)
+                    buf = torch.broadcast_to(
+                        fill, (n_out + 1,) + vals.shape[1:])
+                    return buf.clone().index_copy_(0, dest, vals)[:n_out]
+
+                colors = expand(
+                    colors, 0.0 if render_bkgd is None else render_bkgd)
+                opacities = expand(opacities, 0.0)
+                depths = expand(depths, 0.0)
     if return_extras:
         return colors, opacities, depths, n_samples, extras
     return colors, opacities, depths, n_samples
@@ -385,44 +426,50 @@ def render_image(
     last chunk is padded with rays from the origin along ``(1,1,1)/sqrt(3)``
     (finite through ``1 / rays_d``).
     """
-    n = rays_o.shape[0]
-    chunk = test_chunk_size
-    kwargs = dict(kwargs)
-    kwargs["samples_budget"] = chunk * eval_samples_per_ray
-    if (
-        eval_visible_samples_per_ray is not None
-        and kwargs.get("visible_samples_budget") is not None
-    ):
-        kwargs["visible_samples_budget"] = chunk * eval_visible_samples_per_ray
-    # eval renders are exact: live-sample compaction is a train-step budget
-    kwargs.pop("field_samples_budget", None)
-    timestamps = kwargs.pop("timestamps", None)
-    pad = (-n) % chunk
-    if pad:
-        rays_o = torch.cat(
-            [rays_o, torch.zeros((pad, 3), dtype=rays_o.dtype,
-                                 device=rays_o.device)]
-        )
-        rays_d = torch.cat(
-            [rays_d, torch.full((pad, 3), float(_PAD_DIR),
-                                dtype=rays_d.dtype, device=rays_d.device)]
-        )
-        if timestamps is not None:
-            timestamps = torch.cat(
-                [timestamps, torch.zeros((pad, 1), dtype=timestamps.dtype,
-                                         device=timestamps.device)]
+    with tracing.span("render_image"):
+        n = rays_o.shape[0]
+        chunk = test_chunk_size
+        kwargs = dict(kwargs)
+        kwargs["samples_budget"] = chunk * eval_samples_per_ray
+        if (
+            eval_visible_samples_per_ray is not None
+            and kwargs.get("visible_samples_budget") is not None
+        ):
+            kwargs["visible_samples_budget"] = (
+                chunk * eval_visible_samples_per_ray)
+        # eval renders are exact: live-sample compaction is a train-step
+        # budget
+        kwargs.pop("field_samples_budget", None)
+        timestamps = kwargs.pop("timestamps", None)
+        pad = (-n) % chunk
+        if pad:
+            rays_o = torch.cat(
+                [rays_o, torch.zeros((pad, 3), dtype=rays_o.dtype,
+                                     device=rays_o.device)]
             )
-    outs = []
-    with torch.no_grad():
-        for i in range(0, n + pad, chunk):
-            colors, opacities, depths, _ = render_rays(
-                field, rays_o[i : i + chunk], rays_d[i : i + chunk],
-                timestamps=(None if timestamps is None
-                            else timestamps[i : i + chunk]),
-                **kwargs,
+            rays_d = torch.cat(
+                [rays_d, torch.full((pad, 3), float(_PAD_DIR),
+                                    dtype=rays_d.dtype,
+                                    device=rays_d.device)]
             )
-            outs.append((colors, opacities, depths))
-    return tuple(torch.cat([o[j] for o in outs])[:n] for j in range(3))
+            if timestamps is not None:
+                timestamps = torch.cat(
+                    [timestamps, torch.zeros((pad, 1),
+                                             dtype=timestamps.dtype,
+                                             device=timestamps.device)]
+                )
+        outs = []
+        with torch.no_grad():
+            for i in range(0, n + pad, chunk):
+                colors, opacities, depths, _ = render_rays(
+                    field, rays_o[i : i + chunk], rays_d[i : i + chunk],
+                    timestamps=(None if timestamps is None
+                                else timestamps[i : i + chunk]),
+                    **kwargs,
+                )
+                outs.append((colors, opacities, depths))
+        return tuple(torch.cat([o[j] for o in outs])[:n]
+                     for j in range(3))
 
 
 class DynamicRayBucketer:

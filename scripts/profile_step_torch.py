@@ -13,12 +13,14 @@ use_pallas=True``) and the plain one of each model asked for (default:
 both) it prints:
 
 1. the step's host-clock time over ``--steps`` steps (median, min, max);
-2. from a ``torch.profiler`` trace of 5 steps: device-busy time and wall
-   time per step (their ratio is the busy share; the rest is the card
-   waiting for the host), kernel launches and host-to-device copies per
-   step, device ms per step by kernel name (the 25 largest, then every
-   hand-written kernel of the package below them), and the per-level
-   hash-table scatter's ms per level where it ran;
+2. from a ``torch.profiler`` trace of 5 steps with the host's operations:
+   device-busy and idle time per step (the idle time inflated by the
+   host's recording), kernel launches and host-to-device copies per step,
+   each ``nerfacc.*`` span's device, self and idle ms per step (the
+   benchmark's attribution, ``port_bench/harness/spans.py``), device ms
+   per step by kernel name (the 25 largest, then every hand-written
+   kernel of the package below them), and the per-level hash-table
+   scatter's ms per level where it ran;
 3. for NGP, the step's layers on their own, timed with CUDA events at the
    shapes (393,216 compacted samples): the index arithmetic, the table
    gather and blend, the table gradient with the scatter kernel and with
@@ -56,12 +58,14 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402  (the scene, the ray stream, the timers)
+from port_bench.harness.spans import stage_table  # noqa: E402
 
 PROFILED_STEPS = 5
 
 
 def _trace_summary(path: Path, n_steps: int, unit: str = "step") -> None:
-    """Sums of the chrome trace's device events, per step (or request)."""
+    """Sums of the chrome trace's device events, per step (or request),
+    and the device and idle time of each of the program's spans."""
     events = json.loads(path.read_text())["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
@@ -70,21 +74,24 @@ def _trace_summary(path: Path, n_steps: int, unit: str = "step") -> None:
         rec = by_name[e["name"]]
         rec[0] += e["dur"]
         rec[1] += 1
-    # busy time: the union of the device events' intervals
-    busy, end = 0.0, 0.0
-    for e in sorted(dev, key=lambda e: e["ts"]):
-        start, stop = e["ts"], e["ts"] + e["dur"]
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    wall = max(e["ts"] + e["dur"] for e in dev) - min(e["ts"] for e in dev)
     kernels = sum(1 for e in dev if e["cat"] == "kernel")
     h2d = sum(1 for e in dev if e["cat"] == "gpu_memcpy"
               and "HtoD" in e["name"])
+    # each device operation goes to the nerfacc.* span open at its launch,
+    # each idle gap to the span whose launch ended it (the benchmark's rule)
+    table = stage_table(events, n_steps)
     print(f"  profiled {n_steps} {unit}s: device busy "
-          f"{busy / n_steps / 1e3:.3f} ms of {wall / n_steps / 1e3:.3f} ms "
-          f"wall per {unit} ({100 * busy / wall:.1f}% busy); "
+          f"{table['device_ms']:.3f} ms and idle {table['idle_ms']:.3f} ms "
+          f"per {unit}, idle inflated by the host's recording (the card "
+          f"waits while the profiler records each host operation); "
           f"{kernels / n_steps:.0f} kernel launches and {h2d / n_steps:.1f} "
           f"host-to-device copies per {unit}")
+    print(f"  by the program's spans, per {unit}: device ms (children "
+          f"included), self ms, idle ms (inflated as above), kernels")
+    for name, r in sorted(table["stages"].items(),
+                          key=lambda kv: -kv[1]["device_ms"]):
+        print(f"    {r['device_ms']:8.3f} {r['self_ms']:8.3f} "
+              f"{r['idle_ms']:8.3f} {r['launches']:7.1f}  {name}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     # the 25 longest, then any hand-written kernel of the package below them
     own = re.compile(r"^(void )?\(anonymous namespace\)::")

@@ -42,8 +42,9 @@ trainer at the drive's flags (seed 42) takes 300 steps with its grid
 updates (past the warm-up), then 20 steps timed on the host clock (each
 ending in a synchronize), one sampled grid update timed the same way, and
 a ``torch.profiler`` trace of 5 steps summed as ``profile_step_torch.py``
-sums its traces (device-busy and wall ms per step, launches, host-to-device
-copies, device ms by kernel); the traces go to ``--trace_dir`` (default
+sums its traces (device-busy and idle ms per step, each ``nerfacc.*`` span's
+device, self and idle ms, launches, host-to-device copies, device ms by
+kernel); the traces go to ``--trace_dir`` (default
 ``build/profiles``). No CPU mode.
 """
 
