@@ -41,6 +41,14 @@ Phases (any failed check raises, and the script exits nonzero):
    over 67 TFLOP/s); for K8 also both per call over ten calls back to
    back (the card's time without the host's share of a call) and the
    rate of 32-byte L2 sectors that is (every gathered word moves one).
+   Last the fused hash encoder (``hash_encode``, a kernel of the port
+   with no TPU counterpart) at 2^19 rows x 16 levels x 2^19 entries, on
+   uniform random and on ray-ordered points: its indices and weights
+   bit-equal to ``hash_grid_indices``, its features bit-equal to the
+   corner-order sum and within 8 ulps of the plain path's; timed without
+   and with the gradient's stores, one call and ten back to back, beside
+   the plain path, against K8's gather floor (the row's 128 corners at
+   the rate K8 read in this run).
 4. The render path: four 128x128 views of the procedural scene through
    ``render_image`` with the flagship TensoCP field (random weights from a
    seed), the trained 128^3 occupancy grid, the fused march and the
@@ -68,8 +76,9 @@ Phases (any failed check raises, and the script exits nonzero):
    step on the CPU (2^15 entries per level; loss and every gradient); 10
    steps of 16,384 rays (finite losses and parameters, K7's one-launch
    entry and K5 once per step, the per-level K7 and the CP kernels
-   never); 10 steps on a repeated batch
-   must lower its loss; the same step with no kernel; one 128x128 request
+   never; the fused encoder on every query); 10 steps on a repeated batch
+   must lower its loss; the same step with no kernel but the fused
+   encoder, which has no switch; one 128x128 request
    through ``render_image`` with the NGP field.
 8. ``scripts/bench_hash_torch.py r5gather`` (K8 beside PyTorch's
    indexing).
@@ -85,9 +94,10 @@ Phases (any failed check raises, and the script exits nonzero):
     drive's flags with the kernels (200 steps of 4,096 rays, 96x96 views,
     16 levels x 2 features x 2^19 entries, the field on half the sample
     budget): the PSNR of 2 held-out views must reach 20, no live sample
-    may be dropped, K5, K6 and K7's one-launch entry must launch and no
-    other kernel; then K5, K6 and K7 against their twins on the run's
-    inputs (K7 within 1e-5 of the largest |gradient|).
+    may be dropped, K5, K6, K7's one-launch entry and the fused encoder
+    must launch and no other kernel; then each against its twin on the
+    run's inputs (K7 within 1e-5 of the largest |gradient|, the encoder
+    within 8 ulps of the largest feature).
 11. The vanilla NeRF trainer, ``train_mlp_nerf_torch.py``, at its drive's
     flags (300 steps of 1,024 rays, 64x64 views): PSNR floor 20.
 12. The D-NeRF trainer, ``train_mlp_dnerf_torch.py``, at its drive's
@@ -288,6 +298,11 @@ NGP_LEVELS, NGP_LOG2_T = 16, 19
 B_CORNERS = 8 * NGP_FIELD_BUDGET  # corners per level and step
 GATHER_N = 262144  # K8: indices into one level's table
 GATHER_LEVEL_N = 8 * 786432  # K8: one level's corners at 786,432 samples
+# the fused hash encoder: rows of one density pass or field query of the
+# NGP cells, and its features against the plain path's (whose corner sum
+# runs in another order): within this many f32 ulps of the largest
+ENCODE_ROWS = 1 << 19
+ENCODE_ULPS = 8
 # K4 at a grid size whose partial tables exceed a block's shared memory
 K4_GLOBAL_SHAPE = dict(B=131072, G=1024, R=128)
 # K7 vs index_add_: both sum the same f32 terms, the kernel in atomic
@@ -954,6 +969,8 @@ def check_hash_kernels(dev) -> list:
     report.append(check_hash_levels(dev, rng, x, res, dense, T))
 
     report.append(check_table_gather(dev, rng, T))
+    per_index_ms = report[-1]["at_level_size"]["back_to_back_ms"]
+    report.append(check_hash_encode(dev, rng, per_index_ms / GATHER_LEVEL_N))
     return report
 
 
@@ -1134,6 +1151,121 @@ def check_table_gather(dev, rng, T) -> dict:
     )
 
 
+def corner_order_sum(table, idx, w, packed=True):
+    """The fused encoder's blend written out in PyTorch: acc = acc + w_j *
+    f_j over corners j = 0..7 from 0, on the table rounded to bf16 where
+    ``packed``; (N, F L) feature-major."""
+    L, T, F = table.shape
+    N = idx.shape[0]
+    tf = table.detach().float()
+    if packed:
+        tf = tf.to(torch.bfloat16).float()
+    rows = tf.reshape(L * T, F)[idx.long()].reshape(N, L, 8, F)
+    wv = w.reshape(N, L, 8)
+    acc = torch.zeros((N, L, F), device=table.device)
+    for j in range(8):
+        acc = acc + wv[:, :, j, None] * rows[:, :, j]
+    return acc.permute(0, 2, 1).reshape(N, F * L)
+
+
+def check_hash_encode(dev, rng, gather_ms_per_index) -> dict:
+    """The fused hash encoder (``hash_encode``: indices, weights, the bf16
+    read and the blend in one launch) at the NGP cells' ENCODE_ROWS rows x
+    16 levels x 2^19 entries, on uniform random points and on points laid
+    along rays: the indices and weights it writes for the backward
+    bit-equal to ``hash_grid_indices``, its features bit-equal to the
+    corner-order sum and within ENCODE_ULPS ulps of the plain path's.
+    Timed without the gradient's stores (every density pass, view and grid
+    update) and with them (the training field's query), one call and ten
+    back to back, beside the plain path (``hash_grid_indices`` +
+    ``hash_encode_lookup``, the CPU's twin). The bound is K8's gather
+    floor: the 8 L corner reads of a row at the rate K8 read one level's
+    corners, ten calls back to back, in this run (bytes over 3.35 TB/s
+    beside it). The entry in the report is the ray-ordered case without
+    the gradient's stores."""
+    from nerfacc_tpu_torch.models import hash_grid_indices
+    from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
+    from nerfacc_tpu_torch.ops import (
+        hash_encode,
+        hash_encode_lookup,
+        hash_encode_plain,
+    )
+
+    N, L, T = ENCODE_ROWS, NGP_LEVELS, 1 << NGP_LOG2_T
+    res_np = _level_resolutions(L, 16, 1.4472692012786865)
+    res = torch.as_tensor(res_np, device=dev)
+    dense = torch.as_tensor((res_np + 1) ** 3 <= T, device=dev)
+    table = torch.as_tensor(rng.randn(L, T, 2).astype(np.float32) * 1e-2,
+                            device=dev).requires_grad_()
+    args = (table, res, dense, T)
+    corners = 8 * L * N
+    floor_ms = corners * gather_ms_per_index
+    # x in, features out; with the gradient's inputs 64 L bytes more a
+    # row; per (row, level) 12 flop of coordinates and per corner two
+    # weight products and a product and a sum per feature
+    flop = N * L * (12 + 8 * 6)
+    bounds = {False: bound(N * (12 + 8 * L), flop),
+              True: bound(N * (12 + 8 * L + 64 * L), flop)}
+    rows = {}
+    for label, x in (("random", torch.as_tensor(
+            rng.rand(N, 3).astype(np.float32), device=dev)),
+            ("ray-ordered", ray_ordered_points(dev, N // TRAIN_RAYS))):
+        out = hash_encode(x, *args)
+        idx, w = out.grad_fn.saved_tensors
+        want_idx, want_w = hash_grid_indices(x, res, dense, T)
+        torch.cuda.synchronize()
+        _check_equal(f"hash_encode {label} indices", idx, want_idx)
+        _check_equal(f"hash_encode {label} weights", w, want_w)
+        _check_equal(f"hash_encode {label} features vs the corner-order sum",
+                     out.detach(), corner_order_sum(table, idx, w))
+        lookup = hash_encode_lookup(table, idx, w, T).detach()
+        top = float(lookup.abs().max())
+        ulp = float(np.spacing(np.float32(top)))
+        err = _check_close(f"hash_encode {label} vs the plain path",
+                           out.detach(), lookup, 0.0, ENCODE_ULPS * ulp)
+        del out, idx, w, want_idx, want_w, lookup
+        row = dict(max_abs_err=err)
+        for grad in (False, True):
+            def kernel(x=x, grad=grad):
+                with torch.set_grad_enabled(grad):
+                    return hash_encode(x, *args)
+
+            def plain(x=x, grad=grad):
+                with torch.set_grad_enabled(grad):
+                    return hash_encode_plain(x, *args)
+
+            ms = median_ms(kernel)
+            ms10 = median_ms(kernel, calls=10)
+            pms = median_ms(plain, 5)
+            b = bounds[grad]
+            tag = "with" if grad else "without"
+            print(f"hash_encode {label} points N={N} L={L} T={T} F=2, "
+                  f"{tag} the gradient's stores: kernel {ms:.4f} ms, ten "
+                  f"calls back to back {ms10:.4f} ms per call  plain "
+                  f"{pms:.4f} ms ({pms / ms10:.1f}x)  K8's gather floor "
+                  f"{floor_ms:.4f} ms for {corners} corners ("
+                  f"{floor_ms / ms10:.0%} of it)  bytes alone "
+                  f"{b['bound_ms']:.4f} ms  max abs err {err:.3e} = "
+                  f"{err / ulp:.1f} ulp of max|f| {top:.3e}")
+            row["with_gradient_inputs" if grad else "no_gradient"] = dict(
+                ms=ms, back_to_back_ms=ms10, plain_ms=pms,
+                bytes_bound_ms=b["bound_ms"])
+        rows[label] = row
+        del x
+        torch.cuda.empty_cache()
+    ray = rows["ray-ordered"]
+    return dict(
+        name="hash_encode", route="cuda",
+        source="nerfacc_tpu_torch/csrc/hash_encode.cu",
+        replaces=None, max_abs_err=max(r["max_abs_err"] for r in
+                                       rows.values()),
+        **ray["no_gradient"], library_ms=None, bound_ms=floor_ms,
+        bound_by="K8's gather rate",
+        with_gradient_inputs=ray["with_gradient_inputs"],
+        on_random_points=rows["random"],
+    )
+
+
 def make_requests(dev: torch.device) -> list:
     """Four 128x128 views of the procedural scene: (origins, directions)."""
     from nerfacc_tpu_torch.datasets import generate_rays, look_at_poses
@@ -1219,7 +1351,8 @@ def kernel_counters() -> dict:
     return {name: getattr(ops, name) for name in (
         "cp_level_features", "cp_level_features_res", "cp_level_grads",
         "cp_level_grads_res", "fused_select_grouped", "fused_reselect",
-        "hash_grad_scatter", "hash_grad_scatter_levels", "table_gather")}
+        "hash_grad_scatter", "hash_grad_scatter_levels", "table_gather",
+        "hash_encode")}
 
 
 def drive(path: str, fn, must_launch, must_not_launch=()):
@@ -1619,7 +1752,8 @@ def phase_ngp(dev) -> dict:
     rec, paths["ngp train"] = drive(
         f"{NGP_STEPS} NGP training steps",
         lambda: _timed_steps(field, opt, grid, batch[1:], kw, train_step),
-        ("hash_grad_scatter_levels", "fused_select_grouped"), others,
+        ("hash_grad_scatter_levels", "fused_select_grouped", "hash_encode"),
+        others,
     )
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = {"hash_grad_scatter_levels": 1, "fused_select_grouped": 1}
@@ -1657,19 +1791,20 @@ def phase_ngp(dev) -> dict:
 
     # one 128x128 request through render_image with the trained-on field
     request = make_requests(dev)[0]
+    request_kernels = ("fused_select_grouped", "fused_reselect",
+                       "hash_encode")
     (colors, opacities, depths), paths["ngp render"] = drive(
         "one NGP render request",
-        lambda: _render(field, grid, *request, True),
-        ("fused_select_grouped", "fused_reselect"),
-        tuple(k for k in kernel_counters()
-              if k not in ("fused_select_grouped", "fused_reselect")),
+        lambda: _render(field, grid, *request, True), request_kernels,
+        tuple(k for k in kernel_counters() if k not in request_kernels),
     )
     _check_outputs("NGP request", colors, opacities, depths, CHUNK)
     print(f"NGP request: mean opacity {float(opacities.mean()):.4f}, "
           "outputs finite, opacities in [0, 1]")
     del field, opt
 
-    # the same step with no kernel: index_add_ table gradient, unfused march
+    # the same step with no kernel but the encoder's forward (which has no
+    # switch): index_add_ table gradient, unfused march
     pfield, _ = make_ngp_scene(dev, pallas_grad=False)
     popt = torch.optim.Adam(pfield.parameters(), lr=LR)
     pkw = _ngp_kw(False, TRAIN_RAYS)
@@ -1677,7 +1812,8 @@ def phase_ngp(dev) -> dict:
     prec, _ = drive("plain NGP training steps",
                     lambda: _timed_steps(pfield, popt, grid, batch[1:4], pkw,
                                          train_step),
-                    (), tuple(kernel_counters()))
+                    ("hash_encode",),
+                    tuple(k for k in kernel_counters() if k != "hash_encode"))
     _check_finite_params("plain NGP training", pfield)
     pms = [r[0] for r in prec]
     print(f"NGP step (plain): median {statistics.median(pms):.3f} ms over "
@@ -1808,6 +1944,7 @@ class InputRecorder:
 def _trainer_kernels():
     """The trainers' kernels: counter name -> (module, the name the path
     calls in it, the plain twin, how the two outputs are compared)."""
+    from nerfacc_tpu_torch.models import hash_encoding as he
     from nerfacc_tpu_torch.ops import cp_encoder as cpe
     from nerfacc_tpu_torch.ops import hash_gather as hg
     from nerfacc_tpu_torch.ops import march_select as msel
@@ -1830,6 +1967,10 @@ def _trainer_kernels():
         print(f"{name}: {err / scale:.2e} x max|dT| {scale:.3e}")
         return err
 
+    def encode_err(name, got, want):
+        ulp = float(np.spacing(np.float32(float(want.abs().max()))))
+        return _check_close(name, got, want, 0.0, ENCODE_ULPS * ulp)
+
     return {
         # K1 through the function both CP ops call without a gradient
         "cp_level_features": (
@@ -1849,6 +1990,10 @@ def _trainer_kernels():
         # K7 through the name the hash lookup's backward calls
         "hash_grad_scatter_levels": (
             hg, "hash_grad_scatter_levels", k7_plain, k7_err),
+        # the fused encoder through the name HashEncoder calls (its inputs
+        # kept without the table's gradient: the features alone)
+        "hash_encode": (he, "hash_encode", hg.hash_encode_plain,
+                        encode_err),
     }
 
 
@@ -1921,7 +2066,7 @@ KERNEL_TAGS = {
     "cp_level_grads": "K3", "cp_level_grads_res": "K4",
     "fused_select_grouped": "K5", "fused_reselect": "K6",
     "hash_grad_scatter": "K7 per level", "hash_grad_scatter_levels": "K7",
-    "table_gather": "K8",
+    "table_gather": "K8", "hash_encode": "encoder",
 }
 
 
@@ -2097,7 +2242,7 @@ def phase_trainers(dev) -> tuple:
         ("NGP trainer", "train_ngp_nerf_torch",
          lambda m: [*m.NGP, *m.KERNELS, *seed], NGP_DRIVE_PSNR_FLOOR,
          ("fused_select_grouped", "fused_reselect",
-          "hash_grad_scatter_levels")),
+          "hash_grad_scatter_levels", "hash_encode")),
         ("vanilla trainer", "train_mlp_nerf_torch",
          lambda m: [*m.DRIVE, *seed], MLP_PSNR_FLOOR, ()),
         ("D-NeRF trainer", "train_mlp_dnerf_torch",
@@ -2716,7 +2861,7 @@ def phase_protocol(dev, tmp: Path) -> tuple:
     counts, found, t = run_drive(
         dev, path, module, argv, 0.0,
         ("fused_select_grouped", "fused_reselect",
-         "hash_grad_scatter_levels"), made=made)
+         "hash_grad_scatter_levels", "hash_encode"), made=made)
     batch = time_batches(scene, t.args.num_rays)
     print(f"{path}: {t.last_run['loop_s'] / PROTOCOL_STEPS * 1e3:.3f} ms per "
           f"step (the loop over {PROTOCOL_STEPS} steps, grid updates and "
@@ -2792,7 +2937,7 @@ DP_KERNELS = {
                 "cp_level_grads_res", "fused_select_grouped",
                 "fused_reselect"),
     "ngp": ("fused_select_grouped", "fused_reselect",
-            "hash_grad_scatter_levels"),
+            "hash_grad_scatter_levels", "hash_encode"),
 }
 # World of one under NCCL against training.train_step: the same program
 # with an all-reduce of one rank between backward and Adam; K4's and K7's

@@ -73,6 +73,9 @@ _SIGNATURES = {
     "nerfacc_hash_grad_scatter_levels": (_P,) * 4 + (_I,) * 5 + (_P,),
     # idx, table, out, N, T, stream
     "nerfacc_table_gather": (_P,) * 3 + (_L, _I, _P),
+    # x, table, res, dense, out, idx, w (idx and w null: no gradient's
+    # inputs), N, L, T, F, round to bf16, stream
+    "nerfacc_hash_encode": (_P,) * 7 + (_L,) + (_I,) * 4 + (_P,),
 }
 
 # where the CUDA toolkit installs nvcc when it is not on PATH

@@ -17,7 +17,9 @@ from .cp_encoder import (
     cp_level_grads_staged,
 )
 from .hash_gather import (
+    hash_encode,
     hash_encode_lookup,
+    hash_encode_plain,
     hash_grad_scatter,
     hash_grad_scatter_levels,
     hash_grad_scatter_levels_plain,
@@ -52,7 +54,9 @@ __all__ = [
     "fused_reselect_plain",
     "fused_select_grouped",
     "fused_select_grouped_plain",
+    "hash_encode",
     "hash_encode_lookup",
+    "hash_encode_plain",
     "hash_grad_scatter",
     "hash_grad_scatter_levels",
     "hash_grad_scatter_levels_plain",

@@ -1,5 +1,13 @@
-"""Hash-table encoder core op: multi-level gather forward, table-gradient
-scatter backward (PyTorch port of :mod:`nerfacc_tpu.ops.hash_gather`).
+"""Hash-table encoder core ops: the fused forward, the multi-level gather
+forward, the table-gradient scatter backward (PyTorch port of
+:mod:`nerfacc_tpu.ops.hash_gather`).
+
+``hash_encode`` is the whole encoder forward in one launch of
+``csrc/hash_encode.cu``: corner indices, trilinear weights, the table read
+(rounded to bf16 where ``packed_gather``) and the blend, from the points
+themselves. It replaces no TPU kernel: the JAX package's forward is XLA
+gathers and elementwise ops. Its plain twin, taken for CPU tensors, is
+``hash_grid_indices`` followed by ``hash_encode_lookup``.
 
 Two wrappers replace the Pallas kernel
 ``nerfacc_tpu/ops/hash_gather.py::hash_grad_scatter_packed`` (K7; CUDA
@@ -22,14 +30,16 @@ lane-packed accumulator. Each wrapper takes its plain twin for CPU tensors
 only; for CUDA tensors it launches the kernel or raises. Each counts its
 launches on itself (``.launches``).
 
-``hash_encode_lookup`` is the encoder's autograd op, as the JAX package's
-``custom_vjp``: the forward is plain PyTorch indexing (the JAX forward is
-XLA gathers outside any kernel) and reads the table **rounded to bf16**
-when ``packed_gather`` is set (the JAX package gathers bf16-packed pairs);
-the backward gives the table's gradient alone, through per-level
-``index_add_`` or, with ``pallas_scatter=True``, through one launch of
-``hash_grad_scatter_levels``. Sample positions get no gradient: sampling
-is stop-gradient everywhere.
+``hash_encode_lookup`` is the encoder's autograd op on ready indices and
+weights, as the JAX package's ``custom_vjp``: the forward is plain PyTorch
+indexing (the JAX forward is XLA gathers outside any kernel) and reads the
+table **rounded to bf16** when ``packed_gather`` is set (the JAX package
+gathers bf16-packed pairs); the backward gives the table's gradient alone,
+through per-level ``index_add_`` or, with ``pallas_scatter=True``, through
+one launch of ``hash_grad_scatter_levels``. ``hash_encode`` has the same
+backward, on the indices and weights its kernel writes when the table
+takes a gradient. Sample positions get no gradient: sampling is
+stop-gradient everywhere.
 
 Layouts for this card: the table is ``(L, T, F)``, a level's features of
 one entry adjacent, so one row gather reads every feature of a corner and
@@ -40,11 +50,78 @@ output stays feature-major ``(N, F * L)`` as in the JAX package (columns
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
+
+_PRIMES = (1, 2654435761, 805459861)
+
+
+def hash_grid_indices(
+    x: torch.Tensor, res: torch.Tensor, dense: torch.Tensor, n_entries: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Corner indices and trilinear weights of every level.
+
+    Args:
+        x: (N, 3) f32 points in [0, 1]^3.
+        res: (L,) int64 level resolutions, on ``x``'s device.
+        dense: (L,) bool, the level is indexed densely.
+        n_entries: T, entries per level (a power of two).
+
+    Returns:
+        ``(flat_idx, corner_w)``: (N, L * 8) int32 indices into the
+        (L * T) table rows (level l's corners at columns ``l * 8 .. l * 8
+        + 8``, in x-major corner order; level offset ``l * T`` added), and
+        the (N, L * 8) f32 weights.
+
+    The hash is uint32 arithmetic in the JAX package; here the products
+    are taken in int64 and masked, which leaves the same low bits. The
+    products are taken on the two candidate coordinates per axis before
+    they are spread over the eight corners.
+    """
+    N, L, T = x.shape[0], res.shape[0], int(n_entries)
+    dev = x.device
+    res_f = res.to(x.dtype)
+    xl = x[:, None, :] * res_f[None, :, None]  # (N, L, 3)
+    c0 = torch.floor(xl)
+    frac = xl - c0
+    # the two candidates per axis: (N, L, 3, 2); at x == 1 the upper
+    # corner clips to res while its weight stays
+    o = torch.arange(2, device=dev)
+    c = torch.minimum(
+        torch.clamp(c0.to(torch.int64)[..., None] + o, min=0),
+        res[None, :, None, None],
+    )
+    w = torch.stack([1.0 - frac, frac], dim=-1)
+
+    stride = res + 1
+    hashed = [c[:, :, a] * _PRIMES[a] for a in range(3)]
+    strided = [
+        c[:, :, 0] * (stride * stride)[None, :, None],
+        c[:, :, 1] * stride[None, :, None],
+        c[:, :, 2],
+    ]
+    # corner j of 8 takes candidate (j >> 2, j >> 1, j) & 1 of (x, y, z)
+    j = torch.arange(8, device=dev)
+    pick = [(j >> 2) & 1, (j >> 1) & 1, j & 1]
+
+    def corners(per_axis):
+        return [t[..., p] for t, p in zip(per_axis, pick)]  # 3 x (N, L, 8)
+
+    hx, hy, hz = corners(hashed)
+    dx, dy, dz = corners(strided)
+    idx = torch.where(
+        dense[None, :, None], dx + dy + dz, (hx ^ hy ^ hz) & (T - 1)
+    )
+    idx = idx + (torch.arange(L, device=dev) * T)[None, :, None]
+    wx, wy, wz = corners([w[:, :, a] for a in range(3)])
+    corner_w = (wx * wy * wz).to(torch.float32)
+    return (
+        idx.to(torch.int32).reshape(N, L * 8),
+        corner_w.reshape(N, L * 8),
+    )
 
 
 def _check_scatter_args(idx, values, n_entries, out):
@@ -247,6 +324,23 @@ def hash_grad_scatter_levels(
 hash_grad_scatter_levels.launches = 0
 
 
+def _table_gradient(ctx, g) -> torch.Tensor:
+    """The (L, T, F) table gradient from the indices and weights the
+    forward saved: K7 in one launch, or per-level ``index_add_``."""
+    flat_idx, corner_w = ctx.saved_tensors
+    L, T, F = ctx.table_shape
+    g = g.to(torch.float32).contiguous()  # (N, F * L), feature-major
+    d_table = torch.zeros((L, T, F), dtype=torch.float32, device=g.device)
+    if ctx.pallas_scatter:
+        hash_grad_scatter_levels(flat_idx, corner_w, g, d_table)
+    else:
+        # the encoder's own indices lie inside their levels: no mask
+        _index_add_levels(
+            flat_idx - _level_offsets(L, T, flat_idx.device), corner_w, g,
+            d_table)
+    return d_table
+
+
 class _HashEncodeLookup(torch.autograd.Function):
     """Gather + trilinear blend; the backward is the table gradient."""
 
@@ -267,19 +361,7 @@ class _HashEncodeLookup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        flat_idx, corner_w = ctx.saved_tensors
-        L, T, F = ctx.table_shape
-        g = g.to(torch.float32).contiguous()  # (N, F * L), feature-major
-        d_table = torch.zeros((L, T, F), dtype=torch.float32,
-                              device=g.device)
-        if ctx.pallas_scatter:
-            hash_grad_scatter_levels(flat_idx, corner_w, g, d_table)
-        else:
-            # the encoder's own indices lie inside their levels: no mask
-            _index_add_levels(
-                flat_idx - _level_offsets(L, T, flat_idx.device), corner_w,
-                g, d_table)
-        return d_table, None, None, None, None
+        return _table_gradient(ctx, g), None, None, None, None
 
 
 def hash_encode_lookup(
@@ -326,3 +408,150 @@ def hash_encode_lookup(
     return _HashEncodeLookup.apply(
         table, flat_idx, corner_w, bool(pallas_scatter), bool(packed_gather)
     )
+
+
+# the numbers of features per entry that hash_encode's kernel reads as one
+# row (csrc/hash_encode.cu); HashEncoder sends any other F down the twin
+HASH_ENCODE_FEATURES = (1, 2, 4, 8)
+
+
+def _check_encode_args(x, table, res, dense, n_entries) -> None:
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        raise ValueError(
+            f"hash_encode: x must be (N, 3) float32, got {tuple(x.shape)} "
+            f"{x.dtype}")
+    if table.dim() != 3:
+        raise ValueError(f"hash_encode: table must be (L, T, F), got "
+                         f"{tuple(table.shape)}")
+    L, T, _ = table.shape
+    if T != n_entries or T & (T - 1):
+        raise ValueError(f"hash_encode: T must be n_entries={n_entries} and "
+                         f"a power of two, got table {tuple(table.shape)}")
+    if tuple(res.shape) != (L,) or tuple(dense.shape) != (L,):
+        raise ValueError(
+            f"hash_encode: table {tuple(table.shape)} needs res and dense of "
+            f"shape ({L},), got {tuple(res.shape)} and {tuple(dense.shape)}")
+    if L * T >= 2 ** 31:
+        raise ValueError(f"hash_encode: L * T = {L * T} does not fit 31 bits")
+
+
+def hash_encode_plain(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    res: torch.Tensor,
+    dense: torch.Tensor,
+    n_entries: int,
+    pallas_scatter: bool = False,
+    packed_gather: bool = True,
+) -> torch.Tensor:
+    """``hash_encode``'s twin: :func:`hash_grid_indices`, then
+    :func:`hash_encode_lookup` on what it gives."""
+    with torch.no_grad():
+        flat_idx, corner_w = hash_grid_indices(x, res, dense, n_entries)
+    return hash_encode_lookup(table, flat_idx, corner_w, n_entries,
+                              pallas_scatter, packed_gather)
+
+
+def _encode_launch(x, table, res, dense, packed_gather, with_index):
+    """One launch of the fused forward: ``(out, flat_idx, corner_w)``, the
+    last two None unless ``with_index``."""
+    name = "hash_encode"
+    N, (L, T, F), dev = x.shape[0], table.shape, x.device
+    out = torch.empty((N, F * L), dtype=torch.float32, device=dev)
+    flat_idx = corner_w = None
+    if with_index:
+        flat_idx = torch.empty((N, L * 8), dtype=torch.int32, device=dev)
+        corner_w = torch.empty((N, L * 8), dtype=torch.float32, device=dev)
+    ptrs = (
+        _build.cuda_ptr(name, "x", x, torch.float32, (N, 3), dev),
+        _build.cuda_ptr(name, "table", table, torch.float32, (L, T, F), dev),
+        _build.cuda_ptr(name, "res", res, torch.int64, (L,), dev),
+        _build.cuda_ptr(name, "dense", dense, torch.bool, (L,), dev),
+    )
+    if ptrs[1] % min(4 * F, 16):
+        raise ValueError(f"{name}: table rows must be aligned to their size")
+    _build.launch(
+        name, "nerfacc_hash_encode", dev, *ptrs, out.data_ptr(),
+        None if flat_idx is None else flat_idx.data_ptr(),
+        None if corner_w is None else corner_w.data_ptr(),
+        N, L, T, F, int(packed_gather))
+    hash_encode.launches += 1
+    return out, flat_idx, corner_w
+
+
+class _HashEncode(torch.autograd.Function):
+    """The fused forward, saving the indices and weights its kernel
+    writes; the backward is the table gradient."""
+
+    @staticmethod
+    def forward(ctx, table, x, res, dense, pallas_scatter, packed_gather):
+        out, flat_idx, corner_w = _encode_launch(x, table, res, dense,
+                                                 packed_gather, True)
+        ctx.save_for_backward(flat_idx, corner_w)
+        ctx.table_shape = tuple(table.shape)
+        ctx.pallas_scatter = pallas_scatter
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _table_gradient(ctx, g), None, None, None, None, None
+
+
+def hash_encode(
+    x: torch.Tensor,
+    table: torch.Tensor,
+    res: torch.Tensor,
+    dense: torch.Tensor,
+    n_entries: int,
+    pallas_scatter: bool = False,
+    packed_gather: bool = True,
+) -> torch.Tensor:
+    """The multi-level hash encoding of ``x`` in one launch, with a backward
+    that produces only the table's gradient (the plain twin for CPU
+    tensors: :func:`hash_encode_plain`).
+
+    Args:
+        x: (N, 3) f32 points, contiguous; outside [0, 1]^3 the corners
+            clip to the grid as in :func:`hash_grid_indices`.
+        table: (L, T, F) f32 tables, contiguous; F in
+            ``HASH_ENCODE_FEATURES`` on the card.
+        res: (L,) int64 level resolutions, on ``x``'s device.
+        dense: (L,) bool, the level is indexed densely.
+        n_entries: T, a power of two, with L * T < 2^31.
+        pallas_scatter: the table gradient through K7, as in
+            :func:`hash_encode_lookup`; needs F = 2.
+        packed_gather: read the table rounded to bf16, as in
+            :func:`hash_encode_lookup`.
+
+    Returns:
+        (N, F * L) f32 features, feature-major: the values of
+        :func:`hash_encode_lookup` on :func:`hash_grid_indices`, blended
+        over the eight corners in corner order (``acc + w * f`` from 0), so
+        equal to the twin up to the order of its corner sum.
+
+    The kernel writes the (N, L * 8) indices and weights that the backward
+    reads only when the table takes a gradient (grad mode on and
+    ``table.requires_grad``); otherwise the output carries no graph and
+    nothing is saved. Shapes are checked on the host; no value is read
+    back.
+    """
+    _check_encode_args(x, table, res, dense, n_entries)
+    F = table.shape[2]
+    if pallas_scatter and F != 2:
+        raise ValueError(
+            "pallas_scatter adds feature pairs: it needs n_features == 2, "
+            f"got {F}"
+        )
+    if x.device.type == "cpu":
+        return hash_encode_plain(x, table, res, dense, n_entries,
+                                 pallas_scatter, packed_gather)
+    if F not in HASH_ENCODE_FEATURES:
+        raise ValueError(f"hash_encode: the kernel reads rows of "
+                         f"{HASH_ENCODE_FEATURES} features, got F={F}")
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _HashEncode.apply(table, x, res, dense, bool(pallas_scatter),
+                                 bool(packed_gather))
+    return _encode_launch(x, table, res, dense, packed_gather, False)[0]
+
+
+hash_encode.launches = 0

@@ -31,7 +31,12 @@ atomic order). ``quant_int8`` card vs CPU: the forward and the bf16 level
 features bit-equal, the table gradient within 1e-5 of its largest entry
 (atomic order). ``gather_mode="per_level"`` vs packed on the card: the
 forward bit-equal, the backward's inputs bit-equal and its results
-within 1e-5 of the largest entry.
+within 1e-5 of the largest entry. The fused hash encoder: its indices and
+weights bit-equal to ``hash_grid_indices``, its features bit-equal to
+the corner-order sum ``acc + w * f`` written here and within 8 f32 ulps
+of the largest feature of ``hash_encode_lookup`` (whose corner sum has
+another order), its table gradient within 1e-5 of the largest entry of
+the plain path's (both add in atomic order).
 """
 
 import numpy as np
@@ -47,7 +52,7 @@ from nerfacc_tpu_torch.models import (
     TensoCPRadianceField,
     VanillaNeRFRadianceField,
 )
-from nerfacc_tpu_torch.models import hash_grid_indices
+from nerfacc_tpu_torch.models import HashEncoder, hash_grid_indices
 from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
 from nerfacc_tpu_torch.ops import (
     cp_features_slice_width,
@@ -67,6 +72,9 @@ from nerfacc_tpu_torch.ops import (
     fused_reselect_plain,
     fused_select_grouped,
     fused_select_grouped_plain,
+    hash_encode,
+    hash_encode_lookup,
+    hash_encode_plain,
     hash_grad_scatter,
     hash_grad_scatter_levels,
     hash_grad_scatter_levels_plain,
@@ -506,6 +514,145 @@ def test_table_gather_kernel_matches_plain(cuda_device, N):
         table_gather(store[:N].reshape(1, -1), table)
     with pytest.raises(ValueError):
         table_gather(store[::2], table)  # not contiguous
+
+
+def _encode_case(L, log2_T, N, seed, device):
+    """Points (random, with 0, 1, faces and points outside [0, 1]^3) and
+    the level arguments of an encoder of L levels over 2^log2_T entries."""
+    T = 1 << log2_T
+    res = _level_resolutions(L, 16, 1.4472692012786865)
+    rng = np.random.RandomState(seed)
+    x = rng.rand(N, 3).astype(np.float32)
+    if N >= 16:
+        x[0], x[1], x[2] = 0.0, 1.0, (0.0, 1.0, 0.5)
+        x[3] = np.nextafter(np.float32(1.0), np.float32(0.0))
+        x[4:8] = rng.uniform(-0.5, 1.5, (4, 3))
+        x[8:12] = rng.uniform(-3.0, 4.0, (4, 3))
+        x[12:16, 0] = np.float32(7.0) / np.float32(res[1])  # on a face
+    return (torch.as_tensor(x, device=device),
+            torch.as_tensor(res, device=device),
+            torch.as_tensor((res + 1) ** 3 <= T, device=device), T)
+
+
+def _corner_order_sum(table, idx, w, packed):
+    """The fused forward's blend written out: acc = acc + w_j * f_j for
+    corners j = 0..7 from 0, on the table rounded to bf16 where
+    ``packed``."""
+    L, T, F = table.shape
+    N = idx.shape[0]
+    tf = table.detach().float()
+    if packed:
+        tf = tf.to(torch.bfloat16).float()
+    rows = tf.reshape(L * T, F)[idx.long()].reshape(N, L, 8, F)
+    wv = w.reshape(N, L, 8)
+    acc = torch.zeros((N, L, F), device=table.device)
+    for j in range(8):
+        acc = acc + wv[:, :, j, None] * rows[:, :, j]
+    return acc.permute(0, 2, 1).reshape(N, F * L)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,packed,L,log2_T,N", [
+    (2, True, 8, 14, 20003),    # dense and hashed levels, N * L ragged
+    (2, False, 8, 14, 20003),
+    (1, False, 8, 14, 4097),
+    (4, True, 8, 14, 4097),
+    (8, False, 8, 14, 4097),
+    (2, True, 16, 19, 131075),  # the NGP field's table
+    (2, True, 16, 19, 1),
+    (2, True, 16, 19, 0),
+])
+def test_hash_encode_kernel_matches_its_twins(cuda_device, F, packed, L,
+                                              log2_T, N):
+    x, res, dense, T = _encode_case(L, log2_T, N, 21, cuda_device)
+    rng = np.random.RandomState(22)
+    table = torch.as_tensor(rng.randn(L, T, F).astype(np.float32),
+                            device=cuda_device).requires_grad_()
+    want_idx, want_w = hash_grid_indices(x, res, dense, T)
+    before = hash_encode.launches
+    # the table takes a gradient: the kernel writes the backward's inputs
+    out = hash_encode(x, table, res, dense, T, packed_gather=packed)
+    torch.cuda.synchronize()
+    assert hash_encode.launches == before + 1
+    assert out.shape == (N, F * L) and out.grad_fn is not None
+    idx, w = out.grad_fn.saved_tensors
+    assert idx.dtype == torch.int32 and w.dtype == torch.float32
+    assert torch.equal(idx, want_idx) and torch.equal(w, want_w)
+    assert torch.equal(out.detach(),
+                       _corner_order_sum(table, want_idx, want_w, packed))
+    lookup = hash_encode_lookup(table, want_idx, want_w, T,
+                                packed_gather=packed).detach()
+    if N:
+        ulp = float(np.spacing(np.float32(lookup.abs().max().item())))
+        assert float((out.detach() - lookup).abs().max()) <= 8 * ulp
+    # no gradient: only the features are written and nothing is saved. The
+    # path with a gradient allocates the features and two (N, 8 L) arrays;
+    # this one less than the features and one of them (a block the
+    # allocator does not split may hold up to 1 MB more than asked)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        bare = hash_encode(x, table, res, dense, T, packed_gather=packed)
+    torch.cuda.synchronize()
+    assert hash_encode.launches == before + 2 and bare.grad_fn is None
+    assert torch.cuda.max_memory_allocated() - base <= 4 * N * L * (F + 8)
+    assert torch.equal(bare, out.detach())
+    frozen = table.detach()
+    assert hash_encode(x, frozen, res, dense, T,
+                       packed_gather=packed).grad_fn is None
+    torch.cuda.synchronize()
+    assert hash_encode.launches == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pallas_scatter", [True, False])
+def test_hash_encode_table_gradient_equals_the_plain_path(cuda_device,
+                                                          pallas_scatter):
+    # through K7 and through index_add_, on the indices the kernel wrote
+    x, res, dense, T = _encode_case(16, 19, 65539, 23, cuda_device)
+    L = res.shape[0]
+    rng = np.random.RandomState(24)
+    start = torch.as_tensor(rng.randn(L, T, 2).astype(np.float32) * 1e-2,
+                            device=cuda_device)
+    g = torch.as_tensor(rng.randn(x.shape[0], 2 * L).astype(np.float32),
+                        device=cuda_device)
+    grads = []
+    for fn in (hash_encode, hash_encode_plain):
+        table = start.clone().requires_grad_()
+        (fn(x, table, res, dense, T, pallas_scatter) * g).sum().backward()
+        torch.cuda.synchronize()
+        grads.append(table.grad)
+    scale = float(grads[1].abs().max())
+    assert scale > 0.1
+    assert float((grads[0] - grads[1]).abs().max()) <= GRAD_REL * scale
+
+
+@pytest.mark.cuda
+def test_hash_encoder_chooses_the_kernel_by_its_table(cuda_device):
+    # F in (1, 2, 4, 8): one launch of the fused forward; any other F the
+    # plain path, which reads f32
+    x = torch.rand(1000, 3, device=cuda_device)
+    args = {}
+    for F, launches in ((2, 1), (4, 1), (3, 0)):
+        enc = HashEncoder(n_levels=4, n_features=F, log2_hashmap_size=12,
+                          generator=torch.Generator().manual_seed(F),
+                          device=cuda_device)
+        args[F] = (x, enc.table, enc._res, enc._dense, enc.n_entries, False,
+                   F in (2, 4))
+        before = hash_encode.launches
+        out = enc(x)
+        torch.cuda.synchronize()
+        assert hash_encode.launches == before + launches
+        want = hash_encode_plain(*args[F])
+        ulp = float(np.spacing(np.float32(want.abs().max().item())))
+        assert float((out - want).abs().max()) <= 8 * ulp
+    with pytest.raises(ValueError, match="features"):
+        hash_encode(*args[3])  # F = 3 on the card
+    with pytest.raises(ValueError, match="contiguous"):
+        hash_encode(x.t().contiguous().t(), *args[2][1:])
+    with pytest.raises(TypeError):
+        hash_encode(x, args[2][1].double(), *args[2][2:])
 
 
 @pytest.mark.cuda

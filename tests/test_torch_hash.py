@@ -44,7 +44,9 @@ from nerfacc_tpu_torch.models import (
 )
 from nerfacc_tpu_torch.models.hash_encoding import _level_resolutions
 from nerfacc_tpu_torch.ops import (
+    hash_encode,
     hash_encode_lookup,
+    hash_encode_plain,
     hash_grad_scatter,
     hash_grad_scatter_levels,
     hash_grad_scatter_levels_plain,
@@ -510,6 +512,76 @@ def test_seed_gives_the_same_weights_on_every_device():
         assert torch.equal(p, q), n
     t = a.encoder.table
     assert t.shape == (2, 256, 2) and float(t.detach().abs().max()) <= 1e-4
+
+
+def _level_args(kw):
+    """(res, dense, T) of an encoder configuration, as CPU tensors."""
+    res = _level_resolutions(kw["n_levels"], kw["base_resolution"],
+                             1.4472692012786865)
+    T = 1 << kw["log2_hashmap_size"]
+    return torch.as_tensor(res), torch.as_tensor((res + 1) ** 3 <= T), T
+
+
+@pytest.mark.parametrize("n_features,pallas_scatter,packed_gather", [
+    (1, False, False), (2, False, True), (2, True, True), (4, False, True),
+    (8, False, False),
+])
+def test_fused_op_on_the_cpu_is_the_twin(n_features, pallas_scatter,
+                                         packed_gather):
+    # on CPU tensors hash_encode is hash_grid_indices + hash_encode_lookup:
+    # the same forward and the same table gradient, bit for bit; the dense
+    # and the hashed levels, points at 0, 1 and outside [0, 1]
+    res, dense, T = _level_args(SMALL)
+    L, F = res.shape[0], n_features
+    x = _points(203, [4, 5, 8, 12], seed=11)
+    x[-8:] = np.random.RandomState(12).uniform(-0.5, 1.5, (8, 3))
+    x = torch.as_tensor(x)
+    g = torch.as_tensor(
+        np.random.RandomState(13).randn(203, F * L).astype(np.float32))
+    rng = np.random.RandomState(14)
+    start = torch.as_tensor(rng.randn(L, T, F).astype(np.float32))
+    outs, grads = [], []
+    for fn in ("op", "twin"):
+        table = start.clone().requires_grad_()
+        if fn == "op":
+            out = hash_encode(x, table, res, dense, T, pallas_scatter,
+                              packed_gather)
+        else:
+            idx, w = hash_grid_indices(x, res, dense, T)
+            out = hash_encode_lookup(table, idx, w, T, pallas_scatter,
+                                     packed_gather)
+        (out * g).sum().backward()
+        outs.append(out.detach())
+        grads.append(table.grad)
+    assert outs[0].shape == (203, F * L)
+    assert torch.equal(outs[0], outs[1]) and torch.equal(grads[0], grads[1])
+    assert float(grads[0].abs().max()) > 0.1
+    assert torch.equal(
+        hash_encode_plain(x, start, res, dense, T, pallas_scatter,
+                          packed_gather), outs[1])
+
+
+def test_fused_op_refuses_what_it_does_not_take():
+    res, dense, T = _level_args(SMALL)
+    L = res.shape[0]
+    table = torch.zeros((L, T, 2))
+    x = torch.rand(16, 3)
+    for bad in (
+        lambda: hash_encode(x.double(), table, res, dense, T),  # not f32
+        lambda: hash_encode(x[:, :2], table, res, dense, T),  # not (N, 3)
+        lambda: hash_encode(x.reshape(-1), table, res, dense, T),
+        lambda: hash_encode(x, torch.zeros((L, 1000, 2)), res, dense,
+                            1000),  # T not a power of two
+        lambda: hash_encode(x, table, res, dense, T // 2),  # T != n_entries
+        lambda: hash_encode(x, table[:L - 1], res, dense, T),  # L vs res
+        lambda: hash_encode(x, table, res[:L - 1], dense[:L - 1], T),
+        lambda: hash_encode(x, table, res, dense[:L - 1], T),
+        lambda: hash_encode(x, table.reshape(L * T, 2), res, dense, T),
+        lambda: hash_encode(x, torch.zeros((L, T, 4)), res, dense, T,
+                            pallas_scatter=True),  # K7 adds pairs
+    ):
+        with pytest.raises(ValueError):
+            bad()
 
 
 def test_table_gather_twin_on_cpu():

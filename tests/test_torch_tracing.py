@@ -254,7 +254,25 @@ def test_grid_update_counts_its_cells(scene):
     grid, rays, fields = scene
     _, c = _counted(lambda: ENTRIES["update_grid"](fields["two_stage"], grid,
                                                    rays, None))
-    assert c == {"grid_cells": 2 * (grid.num_cells // 4)}
+    # every cell through the NGP field's encoder, on the CPU's plain path
+    cells = 2 * (grid.num_cells // 4)
+    assert c == {"grid_cells": cells, "encoder_rows": cells}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_encoder_counts_its_rows(scene, path):
+    # the NGP field's hash encoder counts each row of both queries; on the
+    # CPU no row goes through the kernel. The MLP field has no hash encoder
+    grid, rays, fields = scene
+    field = fields["two_stage"] if path == "two_stage" else fields["dense"]
+    with torch.no_grad():
+        _, c = _counted(lambda: render_rays(field, rays[0], rays[1],
+                                            grid=grid, **PATHS[path]))
+    assert "encoder_kernel_rows" not in c
+    if path == "two_stage":
+        assert c["encoder_rows"] == c["density_rows"] + c["field_rows"] > 0
+    else:
+        assert "encoder_rows" not in c
 
 
 @pytest.mark.parametrize("value", [7, torch.tensor(7)])
