@@ -48,7 +48,14 @@ Phases (any failed check raises, and the script exits nonzero):
    corner-order sum and within 8 ulps of the plain path's; timed without
    and with the gradient's stores, one call and ten back to back, beside
    the plain path, against K8's gather floor (the row's 128 corners at
-   the rate K8 read in this run).
+   the rate K8 read in this run). Then the exact stride-1 march in one
+   kernel (``march_dense``, E2, a kernel of the port with no TPU
+   counterpart) on the trained 128^3 grid at a chunk of the view cell
+   (8,192 rays x 1,024 lattice points -> 128 slots, cone 0 and 0.004):
+   bit-equal to ``march_rays``' plain chain, timed per call and replayed
+   from a CUDA graph beside the chain, against a bound from its bytes and
+   an instruction estimate; checked only at 2,048 points and 300 slots,
+   at every point a slot and at 8,193 rays.
 4. The render path: four 128x128 views of the procedural scene through
    ``render_image`` with the flagship TensoCP field (random weights from a
    seed), the trained 128^3 occupancy grid, the fused march and the
@@ -87,15 +94,16 @@ Phases (any failed check raises, and the script exits nonzero):
    scene (GT rendered on the card), then the PSNR of 3 held-out views,
    which must reach 32.5; train seconds, live samples per second,
    ``field_budget_dropped`` and the kernels' launches over the run. Then
-   each kernel of the run (K1, K2, K4, K5, K6) against its plain twin on
-   the inputs the run gave it (the first call at each shape), and K5 / K6
-   also on random rows at those shapes.
+   each kernel of the run (K1, K2, K4, K5, K6, and E2 in the held-out
+   views' exact march) against its plain twin on the inputs the run gave
+   it (the first call at each shape; E2 bit-equal to the plain chain),
+   and K5 / K6 also on random rows at those shapes.
 10. The NGP trainer, ``train_ngp_nerf_torch.py --model ngp``, at its
     drive's flags with the kernels (200 steps of 4,096 rays, 96x96 views,
     16 levels x 2 features x 2^19 entries, the field on half the sample
     budget): the PSNR of 2 held-out views must reach 20, no live sample
-    may be dropped, K5, K6, K7's one-launch entry and the fused encoder
-    must launch and no other kernel; then each against its twin on the
+    may be dropped, K5, K6, K7's one-launch entry, the fused encoder and
+    E2 (the evaluation's exact march) must launch and no other kernel; then each against its twin on the
     run's inputs (K7 within 1e-5 of the largest |gradient|, the encoder
     within 8 ulps of the largest feature).
 11. The vanilla NeRF trainer, ``train_mlp_nerf_torch.py``, at its drive's
@@ -169,8 +177,8 @@ Phases (any failed check raises, and the script exits nonzero):
     over the upper hemisphere), written on the card and loaded whole (its
     seconds and its bytes on disk, in host memory and on the card; one
     view re-written Paeth-filtered, its read timed), then 50 steps of the
-    hash-NGP trainer with the kernels at 2^18-sample batches (K5, K6 and
-    K7 must launch, no PSNR floor): ms per step, live samples per step,
+    hash-NGP trainer with the kernels at 2^18-sample batches (K5, K6, K7
+    and, in the evaluation, E2 must launch, no PSNR floor): ms per step, live samples per step,
     and ms per batch for the native assembly, the upload and both.
 18. Data parallelism over ``torch.distributed``
     (``scripts/dryrun_multichip_torch.py``: 16,384 rays, 48 slots per ray
@@ -241,6 +249,12 @@ SLICE_KW = dict(
 )
 # slice shapes: 12,288 compacted rays x 64 march slots, 32 visible slots
 R_SLICE, G_PROBE, K_SLOTS, K_VISIBLE = 12288, 32, 64, 32
+# the exact stride-1 march (E2) at a chunk of the view cell: 8,192 rays, a
+# lattice of 1,024 points, 128 slots; instructions a lattice point (an
+# estimate: the midpoint, the position, three true divisions, the cell,
+# the test and the table's byte), issued at half the f32 peak's rate
+DENSE_RAYS, DENSE_SAMPLES, DENSE_SLOTS = 8192, 1024, 128
+DENSE_INSTR_PER_POINT = 40
 B_SAMPLES = R_SLICE * K_SLOTS
 GRID_CHUNK = 1 << 17  # samples per field call of update_grid
 
@@ -550,6 +564,7 @@ def phase_kernels(dev: torch.device) -> list:
 
     report += check_march_kernels(dev, rng)
     report += check_hash_kernels(dev)
+    report.append(check_march_dense(dev, rng))
     return report
 
 
@@ -686,6 +701,103 @@ def check_march_kernels(dev, rng) -> list:
         **bound(R_SLICE * 13 * (K_SLOTS + K_VISIBLE), R_SLICE * K_SLOTS),
     ))
     return report
+
+
+def march_dense_chain(rays_o, rays_d, t_min, t_max, grid, *, k_slots,
+                      max_samples, step_size, cone_angle=0.0, dt_max=1e10):
+    """``march_rays``' plain chain at ``coarse_stride`` 1, which E2
+    replaces: its (t_starts, t_ends, deltas, masks)."""
+    from nerfacc_tpu_torch.ray_marching import march_rays
+
+    s = march_rays(rays_o, rays_d, t_min, t_max, grid,
+                   render_step_size=step_size, cone_angle=cone_angle,
+                   max_samples_per_ray=max_samples, slots_per_ray=k_slots,
+                   dt_max=dt_max)
+    return s.t_starts, s.t_ends, s.deltas, s.masks
+
+
+def _check_dense(name, got, want) -> float:
+    """E2's four outputs against the plain chain's: all bit-equal."""
+    for n, a, b in zip(("ts", "te", "dt", "ok"), got, want):
+        _check_equal(f"{name} {n}", a, b)
+    return 0.0
+
+
+def _dense_rays(dev, rng, R):
+    """Rays at the trained grid from a sphere of radius 3.2, the first 64
+    away from the box (t_min = t_max = 1e10), the next 32 render_image's
+    pad rays (the origin along (1, 1, 1) / sqrt(3))."""
+    from nerfacc_tpu_torch import ray_aabb_intersect
+
+    o = rng.randn(R, 3)
+    o = 3.2 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.randn(R, 3) * 0.5
+    d[:64] = o[:64]
+    o[64:96] = 0.0
+    d[64:96] = 1.0
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.as_tensor(a.astype(np.float32), device=dev)
+            for a in (o, d))
+    return (o, d, *ray_aabb_intersect(o, d, AABB))
+
+
+def check_march_dense(dev, rng) -> dict:
+    """E2, the exact stride-1 march in one kernel (``march_dense``, a
+    kernel of the port with no TPU counterpart), against ``march_rays``'
+    plain chain on the trained 128^3 grid: at a chunk of the view (8,192
+    rays, 1,024 lattice points, 128 slots; cone 0 and 0.004) bit-equal and
+    timed (one wrapper call between two events, twenty calls replayed from
+    a CUDA graph, the chain), then checked only at rows longer than a warp
+    holds as bits with more slots than a tile (1,001 rays, 2,048 points,
+    300 slots), every point a slot, and an R that 4 does not divide. The
+    bound: the rays' inputs, the table and the (R, K) rows once at the
+    memory rate, or DENSE_INSTR_PER_POINT instructions a lattice point in
+    the rays' t-ranges at half the f32 peak, whichever is larger."""
+    from nerfacc_tpu_torch.convert import grid_from_arrays
+    from nerfacc_tpu_torch.ops import march_dense
+    from nerfacc_tpu_torch.ray_marching import _in_range_count
+
+    asset = np.load(ROOT / "bench_assets" / "trained_grid.npz")
+    grid = grid_from_arrays(AABB, asset["binary"], asset["occs"], device=dev)
+    R, S, K = DENSE_RAYS, DENSE_SAMPLES, DENSE_SLOTS
+    rows = {}
+    for cone in (0.0, 0.004):
+        args = (*_dense_rays(dev, rng, R), grid)
+        kw = dict(k_slots=K, max_samples=S, step_size=5e-3, cone_angle=cone)
+        got = march_dense(*args, **kw)
+        want = march_dense_chain(*args, **kw)
+        torch.cuda.synchronize()
+        _check_dense(f"march_dense cone={cone}", got, want)
+        ms = median_ms(lambda: march_dense(*args, **kw))
+        gms = graph_ms(lambda: march_dense(*args, **kw))
+        pms = median_ms(lambda: march_dense_chain(*args, **kw), 3)
+        points = int(_in_range_count(args[2], args[3], 5e-3, cone, 1e10,
+                                     S).sum())
+        b = bound(R * 32 + grid.binary.numel() + R * K * 13,
+                  2 * DENSE_INSTR_PER_POINT * points)
+        print(f"E2 march_dense R={R} S={S} K={K} cone={cone}: kernel "
+              f"{ms:.4f} ms, replayed from a CUDA graph {gms:.4f} ms per "
+              f"call  plain chain {pms:.4f} ms  bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}; {points} lattice points in range, "
+              f"{int(want[3].sum())} live slots)  bit-equal")
+        rows[cone] = dict(ms=ms, graph_ms=gms, plain_ms=pms, points=points,
+                          **b)
+    for R2, S2, K2, cone, step in ((1001, 2048, 300, 0.0, 2.5e-3),
+                                   (1001, 2048, 64, 0.004, 2.5e-3),
+                                   (1001, 1024, 1024, 0.0, 5e-3),
+                                   (R + 1, S, K, 0.004, 5e-3)):
+        args = (*_dense_rays(dev, rng, R2), grid)
+        kw = dict(k_slots=K2, max_samples=S2, step_size=step,
+                  cone_angle=cone)
+        _check_dense(f"march_dense R={R2} S={S2} K={K2}",
+                     march_dense(*args, **kw), march_dense_chain(*args, **kw))
+        print(f"E2 march_dense R={R2} S={S2} K={K2} cone={cone}: bit-equal")
+    return dict(
+        name="march_dense", route="cuda",
+        source="nerfacc_tpu_torch/csrc/march_select.cu",
+        replaces=None, max_abs_err=0.0, **rows[0.0], library_ms=None,
+        at_cone_0004=rows[0.004],
+    )
 
 
 def check_cp_training_kernels(dev, rng, xu) -> list:
@@ -1352,7 +1464,7 @@ def kernel_counters() -> dict:
         "cp_level_features", "cp_level_features_res", "cp_level_grads",
         "cp_level_grads_res", "fused_select_grouped", "fused_reselect",
         "hash_grad_scatter", "hash_grad_scatter_levels", "table_gather",
-        "hash_encode")}
+        "hash_encode", "march_dense")}
 
 
 def drive(path: str, fn, must_launch, must_not_launch=()):
@@ -1910,6 +2022,19 @@ def phase_level_scatter(dev) -> dict:
     return {"hash_grad_scatter op per level": counts}
 
 
+def _shape_key(a):
+    """What tells two calls' argument apart: a tensor's shape, an
+    occupancy grid's resolution (the grid is kept by reference: an update
+    makes a new one), anything else as it is."""
+    from nerfacc_tpu_torch.grid import OccupancyGrid
+
+    if torch.is_tensor(a):
+        return tuple(a.shape)
+    if isinstance(a, OccupancyGrid):
+        return ("grid",) + tuple(a.resolution)
+    return a
+
+
 class InputRecorder:
     """Stands in for a kernel wrapper in the module that calls it while a
     path runs: passes every call on, and keeps a copy of the arguments of
@@ -1933,8 +2058,7 @@ class InputRecorder:
         self.wrapped.launches = n
 
     def __call__(self, *args, **kw):
-        key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
-                    for a in args) + tuple(sorted(kw.items()))
+        key = tuple(_shape_key(a) for a in args) + tuple(sorted(kw.items()))
         if key not in self.calls and len(self.calls) < TRAINER_SHAPES_KEPT:
             self.calls[key] = (tuple(a.detach().clone() if torch.is_tensor(a)
                                      else a for a in args), dict(kw))
@@ -1994,6 +2118,9 @@ def _trainer_kernels():
         # kept without the table's gradient: the features alone)
         "hash_encode": (he, "hash_encode", hg.hash_encode_plain,
                         encode_err),
+        # E2 through the name march_rays calls, against the plain chain
+        "march_dense": (msel, "march_dense", march_dense_chain,
+                        _check_dense),
     }
 
 
@@ -2013,10 +2140,13 @@ def recording(names):
 
 
 def _shape_label(args, kw) -> str:
-    dims = ["x".join(map(str, a.shape)) if torch.is_tensor(a) else str(a)
-            for a in args]
+    from nerfacc_tpu_torch.grid import OccupancyGrid
+
+    dims = ["x".join(map(str, a.shape)) if torch.is_tensor(a)
+            else "grid " + "x".join(map(str, a.resolution))
+            if isinstance(a, OccupancyGrid) else str(a) for a in args]
     return " ".join(dims + [f"{k}={v}" for k, v in kw.items()
-                            if k in ("k_slots", "k2")])
+                            if k in ("k_slots", "k2", "max_samples")])
 
 
 def check_trainer_inputs(dev, recorders, path="trainer") -> dict:
@@ -2066,7 +2196,7 @@ KERNEL_TAGS = {
     "cp_level_grads": "K3", "cp_level_grads_res": "K4",
     "fused_select_grouped": "K5", "fused_reselect": "K6",
     "hash_grad_scatter": "K7 per level", "hash_grad_scatter_levels": "K7",
-    "table_gather": "K8", "hash_encode": "encoder",
+    "table_gather": "K8", "hash_encode": "encoder", "march_dense": "E2",
 }
 
 
@@ -2238,11 +2368,12 @@ def phase_trainers(dev) -> tuple:
         ("trainer", "train_ngp_nerf_torch",
          lambda m: [*m.FLAGSHIP, *m.KERNELS, *seed], TRAINER_PSNR_FLOOR,
          ("cp_level_features", "cp_level_features_res",
-          "cp_level_grads_res", "fused_select_grouped", "fused_reselect")),
+          "cp_level_grads_res", "fused_select_grouped", "fused_reselect",
+          "march_dense")),
         ("NGP trainer", "train_ngp_nerf_torch",
          lambda m: [*m.NGP, *m.KERNELS, *seed], NGP_DRIVE_PSNR_FLOOR,
          ("fused_select_grouped", "fused_reselect",
-          "hash_grad_scatter_levels", "hash_encode")),
+          "hash_grad_scatter_levels", "hash_encode", "march_dense")),
         ("vanilla trainer", "train_mlp_nerf_torch",
          lambda m: [*m.DRIVE, *seed], MLP_PSNR_FLOOR, ()),
         ("D-NeRF trainer", "train_mlp_dnerf_torch",
@@ -2861,7 +2992,8 @@ def phase_protocol(dev, tmp: Path) -> tuple:
     counts, found, t = run_drive(
         dev, path, module, argv, 0.0,
         ("fused_select_grouped", "fused_reselect",
-         "hash_grad_scatter_levels", "hash_encode"), made=made)
+         "hash_grad_scatter_levels", "hash_encode", "march_dense"),
+        made=made)
     batch = time_batches(scene, t.args.num_rays)
     print(f"{path}: {t.last_run['loop_s'] / PROTOCOL_STEPS * 1e3:.3f} ms per "
           f"step (the loop over {PROTOCOL_STEPS} steps, grid updates and "
@@ -2902,7 +3034,7 @@ def phase_datasets(dev) -> tuple:
         drives = (
             ("TensoCP drill on disk", "train_ngp_nerf_torch",
              [*drill.drill_argv(tmp / "drill"), *seed],
-             DISK_DRILL_PSNR_FLOOR, cp),
+             DISK_DRILL_PSNR_FLOOR, (*cp, "march_dense")),
             ("D-NeRF trainer on disk", "train_mlp_dnerf_torch",
              [*DISK_DNERF, "--data_root", str(roots["dnerf"]), *seed],
              DISK_DNERF_PSNR_FLOOR, ()),
@@ -3311,9 +3443,10 @@ def check_last_knobs(dev) -> tuple:
             "--max_steps", str(QUANT_STEPS)]
     paths, inputs, psnr = {}, {}, {}
     for path, extra, kernels in (
-            ("flagship 300 steps", [], DP_KERNELS["tensocp"]),
+            ("flagship 300 steps", [],
+             (*DP_KERNELS["tensocp"], "march_dense")),
             ("flagship 300 steps --quant_int8", ["--quant_int8"],
-             ("fused_select_grouped", "fused_reselect"))):
+             ("fused_select_grouped", "fused_reselect", "march_dense"))):
         paths[path], found, t = run_drive(dev, path, module, argv + extra,
                                           QUANT_PSNR_FLOOR, kernels)
         psnr[path] = t.last_run["psnr"]

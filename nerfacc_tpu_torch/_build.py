@@ -66,6 +66,10 @@ _SIGNATURES = {
     "nerfacc_select_grouped": (_P,) * 7 + (_I,) * 3 + (_F,) * 5 + (_P,),
     # masks, ts, te, dt, ts2, te2, dt2, ok2, R, K, K2, stream
     "nerfacc_reselect": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # rays_o, rays_d, t_min, t_max, roi, table, ts, te, dt, ok, R, S, K,
+    # the resolution (3), step, cone, dt_max, step / cone, log1p(cone),
+    # stream
+    "nerfacc_march_dense": (_P,) * 10 + (_I,) * 6 + (_F,) * 5 + (_P,),
     # idx, v, out, B, T, stream
     "nerfacc_hash_grad_scatter": (_P,) * 3 + (_L, _I, _P),
     # flat_idx, corner_w, g, d_table, N, L, T, levels per group, run

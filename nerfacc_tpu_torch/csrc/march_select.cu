@@ -1,8 +1,10 @@
-// March slot selection and stage-2 re-selection, for Hopper (sm_90a).
+// March slot selection, stage-2 re-selection and the exact stride-1
+// march, for Hopper (sm_90a).
 //
 // select_grouped replaces nerfacc_tpu/ops/march_select.py::
 // fused_select_grouped (Pallas _select_kernel + _lattice_t_block);
-// reselect replaces fused_reselect (Pallas _reselect_kernel).
+// reselect replaces fused_reselect (Pallas _reselect_kernel); march_dense
+// replaces no TPU kernel (below).
 //
 // Design: a warp per ray. The Pallas kernels have no vector gather on the
 // TPU, so they unroll compare/select reductions over every group G and
@@ -58,6 +60,45 @@
 // gave. reselect's masked-width sums associate as a tree (the shuffle
 // scan), where the first kernel summed left to right; PyTorch's scan on
 // the card is a tree as well (f32 rounding only, ~1e-7 of a width).
+//
+// march_dense replaces no TPU kernel. The JAX package leaves the exact
+// stride-1 march (ray_marching.py::march_rays at coarse_stride 1 with an
+// occupancy grid) to XLA, which fuses it. PyTorch runs it eagerly: the
+// whole (R, S) lattice of midpoints, its (R, S, 3) positions, the grid's
+// contraction, int64 cell indices, the table gather, the AABB test, a
+// cumsum and a searchsorted over S columns, some sixty launches with
+// hundreds of MB of intermediates. This kernel is that chain in one
+// launch, a warp per ray:
+// - per-ray constants in registers: o, d, t_min, t_max, the cone phases
+//   and the in-range count k_in from the lattice's closed-form inverse
+//   (the plain chain's _in_range_count, operation for operation);
+// - one pass over the lattice: lane l takes points k = l, l + 32, ...
+//   below k_in; per point the midpoint t(k + 0.5), the position, the
+//   AABB contraction, floor(unit * res) clamped to [0, res - 1], the flat
+//   cell, the inside test and one byte of the exact binary table. Lane l
+//   keeps point 32 i + l's live bit as bit i of one register, so a row of
+//   up to 1,024 points lives in one register a lane (longer rows are
+//   walked in chunks of 1,024: counted first, recomputed when slots are
+//   assigned); the live count is a warp sum of the lanes' popcounts;
+// - selection from the registers: stride = max(ceil(count / K), 1); for
+//   iteration i a ballot of bit i and a prefix popcount give each live
+//   point its 0-based rank q; a point whose rank stride divides owns slot
+//   q / stride (reselect's inverted search, as a scatter of its lattice
+//   index into the warp's shared-memory tile of kSlotTile slots); after a
+//   __syncwarp lane j evaluates slot j's start, end and group end and the
+//   warp stores the rows coalesced. Slots past the last live target take
+//   what the plain chain's clamped search gives them: position S - 1,
+//   width 0, mask false.
+// What bounds it: the rows out are 13 bytes a slot (68 MB a 40,960-ray
+// view at K = 128: ~0.02 ms at the card's memory rate); the 2 MB table of
+// a 128^3 grid stays in L2, and consecutive points of a ray share cells;
+// the rest is some tens of instructions a lattice point (three true
+// divisions among them), so the points' arithmetic and the latency of a
+// warp's chain bound it. The positions, cells and tests are the plain
+// chain's f32 operations in its order (_rn intrinsics, true divisions,
+// the roi's extent formed on the card from the roi tensor as the chain
+// forms it), so masks, starts, ends and widths are bit-equal to the
+// chain's.
 
 #include <cuda_runtime.h>
 
@@ -79,8 +120,10 @@ constexpr int kThreads = 32 * kWarps;
 constexpr unsigned kFull = 0xffffffffu;
 // running group counts a warp holds at once (select_grouped)
 constexpr int kGroupChunk = 512;
-// output slots a warp assembles at once (reselect)
+// output slots a warp assembles at once (reselect, march_dense)
 constexpr int kSlotTile = 128;
+// lattice points a warp holds as live bits, 32 a lane (march_dense)
+constexpr int kPointChunk = 32 * 32;
 
 struct Lattice {
   float step, cone, dt_max, a_lim, log_grow;
@@ -115,6 +158,79 @@ __device__ __forceinline__ float lattice_t(float t_min, float k,
       __fmul_rn(__fadd_rn(t_min, __fmul_rn(kA, L.step)),
                 expf(__fmul_rn(L.log_grow, kB))),
       __fmul_rn(kC, L.dt_max));
+}
+
+// Inverse of lattice_t: the fractional index k with t(k) = t.
+__device__ __forceinline__ float lattice_k(float t_min, float t,
+                                           const Lattice& L,
+                                           const Phases& P) {
+  const float kA = __fdiv_rn(__fsub_rn(t, t_min), L.step);
+  if (L.cone <= 0.0f) return kA;
+  const float tA = __fadd_rn(t_min, __fmul_rn(P.nA, L.step));
+  if (t <= tA) return kA;
+  const float tB = __fmul_rn(tA, expf(__fmul_rn(L.log_grow, P.nB)));
+  if (t <= tB) {
+    const float ratio = fmaxf(__fdiv_rn(t, fmaxf(tA, 1e-10f)), 1e-30f);
+    return __fadd_rn(P.nA, __fdiv_rn(logf(ratio), L.log_grow));
+  }
+  return __fadd_rn(__fadd_rn(P.nA, P.nB),
+                   __fdiv_rn(__fsub_rn(t, tB), L.dt_max));
+}
+
+// Lattice points whose midpoint t(k + 1/2) lies below t_max, at most S:
+// ceil(k(t_max) - 1/2) clamped to [0, S] (the clamp keeps a NaN at 0, as
+// the card's float-to-int conversion does).
+__device__ __forceinline__ int in_range_count(float t_min, float t_max,
+                                              const Lattice& L,
+                                              const Phases& P, int S) {
+  const float k = ceilf(__fsub_rn(lattice_k(t_min, t_max, L, P), 0.5f));
+  return static_cast<int>(fminf(fmaxf(k, 0.0f), static_cast<float>(S)));
+}
+
+// One ray and the AABB grid it is marched through (march_dense).
+struct DenseRay {
+  float t0, o[3], d[3];
+  float lo[3], hi[3], ext[3], res[3];
+  int n[3];
+  const unsigned char* table;
+};
+
+// Whether lattice point k of the ray is live: its midpoint inside the roi
+// and on an occupied cell of the exact table.
+__device__ __forceinline__ bool point_live(int k, const DenseRay& ray,
+                                           const Lattice& L,
+                                           const Phases& P) {
+  const float t = lattice_t(ray.t0, __fadd_rn(static_cast<float>(k), 0.5f),
+                            L, P);
+  bool inside = true;
+  int cell = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float x = __fadd_rn(ray.o[a], __fmul_rn(t, ray.d[a]));
+    const float u = __fdiv_rn(__fsub_rn(x, ray.lo[a]), ray.ext[a]);
+    // floor, then the plain chain's clamp to [0, res - 1]
+    const float c = fminf(fmaxf(floorf(__fmul_rn(u, ray.res[a])), 0.0f),
+                          __fsub_rn(ray.res[a], 1.0f));
+    cell = cell * ray.n[a] + static_cast<int>(c);
+    inside = inside && x >= ray.lo[a] && x <= ray.hi[a];
+  }
+  return inside && __ldg(ray.table + cell) != 0;
+}
+
+// Lane l's live bits of the chunk of points c0 .. c0 + kPointChunk - 1
+// below n: bit i for point c0 + 32 i + l.
+__device__ __forceinline__ unsigned live_bits(int c0, int n, int lane,
+                                              const DenseRay& ray,
+                                              const Lattice& L,
+                                              const Phases& P) {
+  unsigned bits = 0;
+  const int iters = min(32, (n - c0 + 31) / 32);
+#pragma unroll 4
+  for (int i = 0; i < iters; ++i) {
+    const int k = c0 + 32 * i + lane;
+    if (k < n && point_live(k, ray, L, P)) bits |= 1u << i;
+  }
+  return bits;
 }
 
 __device__ __forceinline__ int warp_inclusive_sum(int v, int lane) {
@@ -341,6 +457,99 @@ reselect_kernel(const bool* __restrict__ masks, const float* __restrict__ ts,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+march_dense_kernel(const float* __restrict__ rays_o,
+                   const float* __restrict__ rays_d,
+                   const float* __restrict__ t_min,
+                   const float* __restrict__ t_max,
+                   const float* __restrict__ roi,
+                   const unsigned char* __restrict__ table,
+                   float* __restrict__ ts, float* __restrict__ te,
+                   float* __restrict__ dt, bool* __restrict__ ok, int R,
+                   int S, int K, int rx, int ry, int rz, Lattice L) {
+  __shared__ int tile_pos[kWarps][kSlotTile];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long r = (long long)blockIdx.x * kWarps + warp;
+  if (r >= R) return;  // the whole warp leaves
+  const unsigned below_lane = (1u << lane) - 1u;
+
+  // per-ray constants: every lane reads the same words
+  DenseRay ray;
+  ray.t0 = t_min[r];
+  const int n_axis[3] = {rx, ry, rz};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    ray.o[a] = rays_o[3 * r + a];
+    ray.d[a] = rays_d[3 * r + a];
+    ray.lo[a] = roi[a];
+    ray.hi[a] = roi[3 + a];
+    ray.ext[a] = __fsub_rn(ray.hi[a], ray.lo[a]);
+    ray.res[a] = static_cast<float>(n_axis[a]);
+    ray.n[a] = n_axis[a];
+  }
+  ray.table = table;
+  const Phases P =
+      L.cone > 0.0f ? cone_phases(ray.t0, L) : Phases{0.0f, 0.0f};
+  const int n = in_range_count(ray.t0, t_max[r], L, P, S);
+
+  // the live count first: the stride decides which ranks own slots. A
+  // row of one chunk keeps its bits; longer rows recompute theirs below
+  const bool one_chunk = n <= kPointChunk;
+  unsigned held = 0;
+  int count = 0;
+  for (int c0 = 0; c0 < n; c0 += kPointChunk) {
+    held = live_bits(c0, n, lane, ray, L, P);
+    count += __reduce_add_sync(kFull, __popc(held));
+  }
+  const int stride = max((count + K - 1) / K, 1);
+  // slots whose rank target j * stride lies below the count
+  const int filled = min((count + stride - 1) / stride, K);
+  const long long out = r * K;
+
+  for (int j0 = 0; j0 < K; j0 += kSlotTile) {
+    const int nj = min(kSlotTile, K - j0);
+    // the chunks are walked until the rank of the tile's last filled slot
+    const int last = min(j0 + nj, filled) - 1;
+    const int q_end = last >= j0 ? last * stride + 1 : 0;
+    int base = 0;  // live points before the chunk
+    for (int c0 = 0; c0 < n && base < q_end; c0 += kPointChunk) {
+      const unsigned bits = one_chunk ? held : live_bits(c0, n, lane, ray,
+                                                         L, P);
+      const int iters = min(32, (n - c0 + 31) / 32);
+      for (int i = 0; i < iters; ++i) {
+        const bool m = (bits >> i) & 1u;
+        const unsigned live = __ballot_sync(kFull, m);
+        if (m) {
+          const int q = base + __popc(live & below_lane);  // 0-based rank
+          const int j = q / stride;
+          if (j * stride == q && j >= j0 && j < j0 + nj) {
+            tile_pos[warp][j - j0] = c0 + 32 * i + lane;
+          }
+        }
+        base += __popc(live);
+      }
+    }
+    __syncwarp();
+    for (int jj = lane; jj < nj; jj += 32) {
+      const int j = j0 + jj;
+      const bool okj = j < filled;
+      // the plain chain's search clamps a target past the count to S - 1
+      const int pos = okj ? tile_pos[warp][jj] : S - 1;
+      const int scale = min(max(count - j * stride, 0), stride);
+      const float posf = static_cast<float>(pos);
+      const float start = lattice_t(ray.t0, posf, L, P);
+      ts[out + j] = start;
+      te[out + j] = lattice_t(ray.t0, __fadd_rn(posf, 1.0f), L, P);
+      // exact decimation-group width, as select_grouped forms it
+      dt[out + j] = __fsub_rn(
+          lattice_t(ray.t0, static_cast<float>(pos + scale), L, P), start);
+      ok[out + j] = okj;
+    }
+    __syncwarp();  // the next tile overwrites the positions
+  }
+}
+
 }  // namespace
 
 extern "C" int nerfacc_select_grouped(const int* live, const int* group_size,
@@ -376,5 +585,23 @@ extern "C" int nerfacc_reselect(const bool* masks, const float* ts,
     default: NERFACC_RESELECT(0); break;
   }
 #undef NERFACC_RESELECT
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int nerfacc_march_dense(const float* rays_o, const float* rays_d,
+                                   const float* t_min, const float* t_max,
+                                   const float* roi,
+                                   const unsigned char* table, float* ts,
+                                   float* te, float* dt, bool* ok, int R,
+                                   int S, int K, int rx, int ry, int rz,
+                                   float step, float cone, float dt_max,
+                                   float a_lim, float log_grow,
+                                   void* stream) {
+  if (R == 0 || K == 0) return 0;
+  const Lattice L{step, cone, dt_max, a_lim, log_grow};
+  march_dense_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      rays_o, rays_d, t_min, t_max, roi, table, ts, te, dt, ok, R, S, K, rx,
+      ry, rz, L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,8 @@ from .march_select import (
     fused_reselect_plain,
     fused_select_grouped,
     fused_select_grouped_plain,
+    march_dense,
+    march_dense_plain,
 )
 from .sample_compact import compact_live_slots, expand_compact
 from .table_gather import table_gather, table_gather_plain
@@ -61,6 +63,8 @@ __all__ = [
     "hash_grad_scatter_levels",
     "hash_grad_scatter_levels_plain",
     "hash_grad_scatter_plain",
+    "march_dense",
+    "march_dense_plain",
     "table_gather",
     "table_gather_plain",
 ]

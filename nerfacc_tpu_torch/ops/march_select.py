@@ -1,5 +1,5 @@
-"""March slot selection and stage-2 re-selection: CUDA kernels and their
-plain PyTorch twins.
+"""March slot selection, stage-2 re-selection and the exact stride-1 march:
+CUDA kernels and their plain PyTorch twins.
 
 ``fused_select_grouped`` replaces the Pallas kernel
 ``nerfacc_tpu/ops/march_select.py::fused_select_grouped``: per ray, the
@@ -8,7 +8,10 @@ search of each slot's group, and the closed-form lattice at the slot's
 start, end and group end. ``fused_reselect`` replaces
 ``fused_reselect``: per ray, the rank and masked-width cumsums over the K
 march slots, the re-selection of ``k2`` slots and their exact group
-widths.
+widths. ``march_dense`` replaces no TPU kernel: it is the stride-1 branch
+of ``march_rays`` over an AABB occupancy grid (the lattice midpoints, the
+exact grid test, the rank selection and the lattice at each slot), which
+the JAX package leaves to XLA, in one launch.
 
 The Pallas kernels unroll compare/select loops over G and K because the
 TPU has no vector gather. The CUDA kernels (``csrc/march_select.cu``) give
@@ -16,15 +19,19 @@ each ray a warp: rows are read and written coalesced, the running counts
 come from shuffle scans, ``fused_select_grouped`` finds each slot's group
 by a binary search of the running counts in shared memory, and
 ``fused_reselect`` inverts its rank search into a scatter (a live source
-slot of 0-based rank q is output slot q / stride when stride divides q).
-Each wrapper takes the plain twin for CPU tensors only; for CUDA tensors
-it launches the kernel or raises. Each counts its launches in
+slot of 0-based rank q is output slot q / stride when stride divides q),
+and ``march_dense`` keeps a ray's live bits in registers, one bit a
+lattice point, and scatters each point whose rank the stride divides into
+its slot. Each wrapper takes the plain twin for CPU tensors only; for CUDA
+tensors it launches the kernel or raises. Each counts its launches in
 ``<wrapper>.launches``.
 
 No kernel runs on the CPU, so the kernels' index algebra is also stated
 here in vectorised PyTorch, loop for loop and clamp for clamp
 (``select_slots_by_search``, ``reselect_by_scatter``), for the tests to
 hold against the twins and the JAX package; nothing else calls them.
+``march_dense``'s statement of its algorithm, ``march_dense_plain``, is
+its twin as well: it is bit-equal to ``march_rays``' plain chain.
 """
 
 from __future__ import annotations
@@ -34,8 +41,11 @@ from typing import Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, tracing
+from ..contraction import ContractionType
+from ..grid import OccupancyGrid
 from ..ray_marching import (
+    _in_range_count,
     _lattice_t,
     gather_rows_dense,
     reselect_visible,
@@ -46,8 +56,18 @@ from ..ray_marching import (
 Quad = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 # csrc/march_select.cu: running group counts a warp holds at once, output
-# slots it assembles at once, source slots it reads at once
+# slots it assembles at once, source slots it reads at once, lattice
+# points it holds as live bits (32 a lane)
 GROUP_CHUNK, SLOT_TILE, WARP = 512, 128, 32
+POINT_CHUNK = WARP * WARP
+
+
+def _lattice_constants(step_size: float, cone_angle: float, dt_max: float):
+    """The lattice's f32 constants for a kernel: step, cone, dt_max, step /
+    cone and log1p(cone), as the plain chain rounds them to f32."""
+    cone = float(cone_angle)
+    a_lim = step_size / cone if cone > 0.0 else 0.0
+    return float(step_size), cone, float(dt_max), a_lim, math.log1p(cone)
 
 
 def fused_select_grouped_plain(
@@ -113,13 +133,10 @@ def fused_select_grouped(
     outs = [torch.empty((R, k_slots), dtype=torch.float32, device=dev)
             for _ in range(3)]
     outs.append(torch.empty((R, k_slots), dtype=torch.bool, device=dev))
-    cone = float(cone_angle)
-    # the lattice constants as the plain chain rounds them to f32
-    a_lim = step_size / cone if cone > 0.0 else 0.0
     _build.launch(
         name, "nerfacc_select_grouped", dev,
         *args, *(o.data_ptr() for o in outs), R, G, k_slots,
-        float(step_size), cone, float(dt_max), a_lim, math.log1p(cone),
+        *_lattice_constants(step_size, cone_angle, dt_max),
     )
     fused_select_grouped.launches += 1
     return tuple(outs)
@@ -309,3 +326,164 @@ def reselect_by_scatter(
         outs[2][:, sl] = torch.where(okj, nxt - tile_start[:, :nj],
                                      torch.zeros_like(nxt))
     return outs[0], outs[1], outs[2], ok2
+
+
+def march_dense_plain(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t_min: torch.Tensor,
+    t_max: torch.Tensor,
+    grid: OccupancyGrid,
+    *,
+    k_slots: int,
+    max_samples: int,
+    step_size: float,
+    cone_angle: float = 0.0,
+    dt_max: float = 1e10,
+    chunk: int = POINT_CHUNK,
+    tile: int = SLOT_TILE,
+) -> Quad:
+    """The algorithm of the ``march_dense`` kernel, vectorised: (t_starts,
+    t_ends, deltas, ok) as :func:`march_dense` returns them.
+
+    A ray's lattice points below its in-range count are walked ``chunk``
+    at a time (point c0 + 32 i + l is lane l's bit i in the kernel: the
+    lattice order is the rank order). A point is live when its midpoint
+    lies in the roi and on an occupied cell of the exact table, the cell
+    being ``floor(unit * res)`` clamped to ``[0, res - 1]`` in f32. The
+    live count sets the stride ``max(ceil(count / K), 1)``; output slots
+    are assembled ``tile`` at a time, each tile by another walk over the
+    chunks with the rank carried across them: a live point of 0-based rank
+    q owns slot q / stride when stride divides q. Slots past the last
+    target take position S - 1 and width 0, unmasked. Raises if a filled
+    slot got no point.
+    """
+    R, S, K = rays_o.shape[0], max_samples, k_slots
+    dev = rays_o.device
+    k_in = _in_range_count(t_min, t_max, step_size, cone_angle, dt_max, S)
+    lo, hi = grid.roi_aabb[:3], grid.roi_aabb[3:]
+    res = torch.tensor(grid.resolution, dtype=torch.float32, device=dev)
+    _, ry, rz = grid.resolution
+    table = grid.binary.reshape(-1)
+
+    def live(c0: int) -> torch.Tensor:
+        """(R, n) live bits of the points c0 .. c0 + n - 1."""
+        k = torch.arange(c0, min(c0 + chunk, S), dtype=torch.float32,
+                         device=dev)[None]
+        t_mid = _lattice_t(t_min[:, None], k + 0.5, step_size, cone_angle,
+                           dt_max)
+        x = rays_o[:, None, :] + t_mid[..., None] * rays_d[:, None, :]
+        unit = (x - lo) / (hi - lo)
+        cell = torch.minimum(torch.clamp(torch.floor(unit * res), min=0.0),
+                             res - 1.0).long()
+        flat = (cell[..., 0] * ry + cell[..., 1]) * rz + cell[..., 2]
+        inside = torch.all((x >= lo) & (x <= hi), dim=-1)
+        return (k < k_in[:, None]) & inside & table[flat]
+
+    count = torch.zeros((R, 1), dtype=torch.int32, device=dev)
+    for c0 in range(0, S, chunk):
+        count += live(c0).sum(dim=1, keepdim=True, dtype=torch.int32)
+    stride = torch.clamp(
+        torch.div(count + K - 1, K, rounding_mode="floor"), min=1)
+    filled = torch.clamp(
+        torch.div(count + stride - 1, stride, rounding_mode="floor"), max=K)
+    j_all = torch.arange(K, dtype=torch.int32, device=dev)[None]
+    ok = j_all < filled
+
+    pos = torch.full((R, K), S - 1, dtype=torch.int32, device=dev)
+    for j0 in range(0, K, tile):
+        nj = min(tile, K - j0)
+        tile_pos = torch.full((R, nj), -1, dtype=torch.int32, device=dev)
+        base = torch.zeros((R, 1), dtype=torch.int32, device=dev)
+        for c0 in range(0, S, chunk):
+            m = live(c0)
+            q = base + torch.cumsum(m, dim=1, dtype=torch.int32) - 1
+            j = torch.div(q, stride, rounding_mode="floor")
+            kept = m & (j * stride == q) & (j >= j0) & (j < j0 + nj)
+            rows, cols = torch.nonzero(kept, as_tuple=True)
+            tile_pos[rows, j[rows, cols].long() - j0] = (c0 + cols).to(
+                torch.int32)
+            base = base + m.sum(dim=1, keepdim=True, dtype=torch.int32)
+        here = ok[:, j0:j0 + nj]
+        if bool((here & (tile_pos < 0)).any()):
+            raise AssertionError("a filled slot got no lattice point")
+        pos[:, j0:j0 + nj] = torch.where(here, tile_pos, pos[:, j0:j0 + nj])
+
+    scale = torch.minimum(torch.clamp(count - j_all * stride, min=0), stride)
+
+    def lat(k):
+        return _lattice_t(t_min[:, None], k.to(torch.float32), step_size,
+                          cone_angle, dt_max)
+
+    ts = lat(pos)
+    te = lat(pos.to(torch.float32) + 1.0)
+    return ts, te, lat(pos + scale) - ts, ok
+
+
+def march_dense(
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    t_min: torch.Tensor,
+    t_max: torch.Tensor,
+    grid: OccupancyGrid,
+    *,
+    k_slots: int,
+    max_samples: int,
+    step_size: float,
+    cone_angle: float = 0.0,
+    dt_max: float = 1e10,
+) -> Quad:
+    """The exact stride-1 march over an AABB occupancy grid, in one launch.
+
+    Args:
+        rays_o, rays_d: (R, 3) f32 origins and directions.
+        t_min, t_max: (R,) f32 t-ranges.
+        grid: an AABB occupancy grid; its exact ``binary`` table is read.
+        k_slots: slots per ray, at most ``max_samples``.
+        max_samples: the candidate lattice S.
+        step_size / cone_angle / dt_max: lattice parameters.
+
+    Returns:
+        (t_starts, t_ends, deltas, ok): three (R, K) f32 and one (R, K)
+        bool, bit-equal to ``march_rays``' plain chain at
+        ``coarse_stride`` 1.
+    """
+    name = "march_dense"
+    if grid.contraction_type != ContractionType.AABB:
+        raise ValueError(f"{name}: needs an AABB grid, got "
+                         f"{grid.contraction_type}")
+    if not 0 < k_slots <= max_samples < 1 << 24:
+        raise ValueError(f"{name}: need 0 < k_slots <= max_samples < 2^24, "
+                         f"got {k_slots}, {max_samples}")
+    kw = dict(k_slots=k_slots, max_samples=max_samples, step_size=step_size,
+              cone_angle=cone_angle, dt_max=dt_max)
+    if rays_o.device.type == "cpu":
+        return march_dense_plain(rays_o, rays_d, t_min, t_max, grid, **kw)
+    R = rays_o.shape[0]
+    dev = rays_o.device
+    res = tuple(grid.resolution)
+    if math.prod(res) >= 1 << 31:
+        raise ValueError(f"{name}: a grid of {res} has 2^31 cells or more")
+    f32 = torch.float32
+    args = [
+        _build.cuda_ptr(name, "rays_o", rays_o, f32, (R, 3), dev),
+        _build.cuda_ptr(name, "rays_d", rays_d, f32, (R, 3), dev),
+        _build.cuda_ptr(name, "t_min", t_min, f32, (R,), dev),
+        _build.cuda_ptr(name, "t_max", t_max, f32, (R,), dev),
+        _build.cuda_ptr(name, "roi_aabb", grid.roi_aabb, f32, (6,), dev),
+        _build.cuda_ptr(name, "binary", grid.binary, torch.bool, res, dev),
+    ]
+    outs = [torch.empty((R, k_slots), dtype=f32, device=dev)
+            for _ in range(3)]
+    outs.append(torch.empty((R, k_slots), dtype=torch.bool, device=dev))
+    _build.launch(
+        name, "nerfacc_march_dense", dev,
+        *args, *(o.data_ptr() for o in outs), R, max_samples, k_slots, *res,
+        *_lattice_constants(step_size, cone_angle, dt_max),
+    )
+    march_dense.launches += 1
+    tracing.count("march_kernel_rays", R)
+    return tuple(outs)
+
+
+march_dense.launches = 0

@@ -6,8 +6,9 @@ lattice ``t(k)`` per ray (the reference recurrence ``t += clamp(t * cone,
 dt_min, dt_max)`` solved piecewise), strided probes of a dilated occupancy
 table per group, sample-rank slot selection with decimation when a ray has
 more live candidates than slots, and an exact occupancy re-check at the
-selected midpoints. ``use_pallas=True`` routes slot selection and the
-stage-2 re-selection through the hand-written CUDA kernels of
+selected midpoints. ``use_pallas=True`` routes slot selection, the
+stage-2 re-selection and the exact stride-1 march over an AABB grid
+through the hand-written CUDA kernels of
 :mod:`nerfacc_tpu_torch.ops.march_select`.
 
 Divisions by a float constant divide by a tensor on the input's device:
@@ -26,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from .contraction import ContractionType
 from .grid import OccupancyGrid
 from .intersection import ray_aabb_intersect
 
@@ -328,11 +330,13 @@ def march_rays(
 
     ``use_pallas=True`` runs that grouped selection and the lattice
     evaluation in the CUDA kernel
-    :func:`nerfacc_tpu_torch.ops.march_select.fused_select_grouped` (the
-    name is the JAX package's switch; on this port it selects the CUDA
-    kernel, and on CPU tensors its plain PyTorch twin). The default keeps
-    the unfused op chain; which is faster on the card is for measurement
-    to decide.
+    :func:`nerfacc_tpu_torch.ops.march_select.fused_select_grouped`, and
+    the stride-1 march over an AABB grid (lattice, exact grid test, slot
+    selection) in
+    :func:`nerfacc_tpu_torch.ops.march_select.march_dense` (the name is the
+    JAX package's switch; on this port it selects the CUDA kernels, and on
+    CPU tensors their plain PyTorch twins). The default keeps the unfused
+    op chain.
     """
     S, K, C = max_samples_per_ray, slots_per_ray, coarse_stride
     if not (K <= S and S % max(C, 1) == 0):
@@ -366,6 +370,22 @@ def march_rays(
             )
         pos, ok, scale = select_slots_grouped(live_g, group_size, K)
     else:
+        # the unbounded contractions (tanh, the sphere's norm) keep the
+        # plain chain: the kernel reproduces the AABB map's f32 operations
+        # bit for bit, and would have to match those library functions'
+        # rounding too
+        if (use_pallas and grid is not None
+                and grid.contraction_type == ContractionType.AABB):
+            from .ops.march_select import march_dense
+
+            t_starts, t_ends, deltas, ok = march_dense(
+                rays_o.contiguous(), rays_d.contiguous(),
+                t_min.contiguous(), t_max.contiguous(), grid,
+                k_slots=K, max_samples=S, step_size=render_step_size,
+                cone_angle=cone_angle, dt_max=dt_max,
+            )
+            return RaySegments(t_starts=t_starts, t_ends=t_ends,
+                               deltas=deltas, masks=ok)
         k = torch.arange(S, dtype=torch.float32, device=rays_o.device)[None]
         t_mid = _lattice_t(t_min[:, None], k + 0.5, render_step_size,
                            cone_angle, dt_max)

@@ -37,7 +37,8 @@ computes it only under ``enabled()``. The counters: ``rays``,
 ``density_live`` (rows the density pass evaluates, the live among them),
 ``field_rows`` and ``field_live`` (the same for the stage-2 query; live:
 composited), ``field_budget_dropped``, ``grid_cells`` (cells a grid
-update evaluates). The totals belong to the process, like the profiler.
+update evaluates), ``march_kernel_rays`` (rays the exact stride-1 march
+ran through its CUDA kernel, ``ops.march_select.march_dense``). The totals belong to the process, like the profiler.
 """
 
 from __future__ import annotations

@@ -36,7 +36,10 @@ weights bit-equal to ``hash_grid_indices``, its features bit-equal to
 the corner-order sum ``acc + w * f`` written here and within 8 f32 ulps
 of the largest feature of ``hash_encode_lookup`` (whose corner sum has
 another order), its table gradient within 1e-5 of the largest entry of
-the plain path's (both add in atomic order).
+the plain path's (both add in atomic order). The exact stride-1 march's
+kernel (``march_dense``): starts, ends, widths and masks bit-equal to
+``march_rays``' plain chain, and a view rendered through it equal to one
+rendered through the chain, colour for colour.
 """
 
 import numpy as np
@@ -79,6 +82,7 @@ from nerfacc_tpu_torch.ops import (
     hash_grad_scatter_levels,
     hash_grad_scatter_levels_plain,
     hash_grad_scatter_plain,
+    march_dense,
     table_gather,
     table_gather_plain,
 )
@@ -1199,6 +1203,174 @@ def test_ray_marching_kernels_on_the_trained_grid(cuda_device):
     assert torch.equal(a.ray_indices, b.ray_indices)
     for x, y in ((a.t_starts, b.t_starts), (a.t_ends, b.t_ends)):
         torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6)
+
+
+def _trained_grid(device):
+    from pathlib import Path
+
+    asset = np.load(Path(__file__).resolve().parents[1] / "bench_assets"
+                    / "trained_grid.npz")
+    return grid_from_arrays((-1.5, -1.5, -1.5, 1.5, 1.5, 1.5),
+                            asset["binary"], asset["occs"], device=device)
+
+
+def _view_rays(R, seed, device):
+    """Rays at the trained grid from a sphere of radius 3.2, then rays
+    that miss the box and ``render_image``'s pad rays (the origin along
+    (1, 1, 1) / sqrt(3)): (o, d, t_min, t_max)."""
+    from nerfacc_tpu_torch import ray_aabb_intersect
+
+    rng = np.random.RandomState(seed)
+    o = rng.randn(R, 3)
+    o = 3.2 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = -o + rng.randn(R, 3) * 0.5
+    d[:64] = o[:64]  # away from the box: t_min = t_max = 1e10
+    o[64:96] = 0.0
+    d[64:96] = 1.0
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.as_tensor(a.astype(np.float32), device=device)
+            for a in (o, d))
+    t_min, t_max = ray_aabb_intersect(o, d, (-1.5,) * 3 + (1.5,) * 3)
+    assert bool((t_min[:64] == 1e10).all() & (t_max[:64] == 1e10).all())
+    return o, d, t_min, t_max
+
+
+def _march_both(o, d, t_min, t_max, grid, **kw):
+    from nerfacc_tpu_torch.ray_marching import march_rays
+
+    kw = dict(dict(render_step_size=5e-3, max_samples_per_ray=1024,
+                   slots_per_ray=128), **kw)
+    n = march_dense.launches
+    got = march_rays(o, d, t_min, t_max, grid, use_pallas=True, **kw)
+    assert march_dense.launches == n + 1
+    want = march_rays(o, d, t_min, t_max, grid, use_pallas=None, **kw)
+    assert march_dense.launches == n + 1
+    for name in ("t_starts", "t_ends", "deltas", "masks"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cone", [0.0, 0.004])
+@pytest.mark.parametrize("R", [8192, 4097])
+def test_march_dense_kernel_on_the_trained_grid(cuda_device, R, cone):
+    # the view's shapes: S = 1,024 lattice points, K = 128 slots
+    grid = _trained_grid(cuda_device)
+    o, d, t_min, t_max = _view_rays(R, seed=21, device=cuda_device)
+    want = _march_both(o, d, t_min, t_max, grid, cone_angle=cone)
+    live = want.masks.sum(dim=1)
+    # misses carry nothing; rows above K (decimated: a slot spans its
+    # group) and rows below it are both present
+    assert not bool(live[:64].any())
+    decimated = (want.masks & (want.deltas > (want.t_ends - want.t_starts)
+                               * 1.5)).any(dim=1)
+    assert int(decimated.sum()) > 10
+    assert int(((live > 0) & (live < 128)).sum()) > 10
+    assert int(want.masks.sum()) > 100000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,K,cone", [
+    (2048, 300, 0.0),  # rows longer than a warp holds, slots past a tile
+    (2048, 64, 0.004),
+    (1024, 1024, 0.0),  # every lattice point a slot
+    (96, 32, 0.0),  # a lattice shorter than the t-range: clamped
+])
+def test_march_dense_kernel_shapes(cuda_device, S, K, cone):
+    grid = _trained_grid(cuda_device)
+    o, d, t_min, t_max = _view_rays(1001, seed=22, device=cuda_device)
+    step = 2.5e-3 if S == 2048 else 5e-3
+    _march_both(o, d, t_min, t_max, grid, render_step_size=step,
+                max_samples_per_ray=S, slots_per_ray=K, cone_angle=cone)
+
+
+@pytest.mark.cuda
+def test_march_dense_counts_its_rays(cuda_device):
+    from nerfacc_tpu_torch import tracing
+
+    grid = _trained_grid(cuda_device)
+    o, d, t_min, t_max = _view_rays(1000, seed=23, device=cuda_device)
+    tracing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        march_dense(o, d, t_min, t_max, grid, k_slots=64, max_samples=1024,
+                    step_size=5e-3)
+    assert tracing.snapshot() == {"march_kernel_rays": 1000}
+    tracing.reset()
+
+
+@pytest.mark.cuda
+def test_render_image_through_the_march_kernel_is_exact(cuda_device,
+                                                        monkeypatch):
+    # a 200 x 200 view at the view cell's settings through the kernel,
+    # against the same view with the plain chain in the march and K6 in
+    # the cull in both: the same slots, so the same colours
+    from nerfacc_tpu_torch import render_image, utils
+
+    grid = _trained_grid(cuda_device)
+    field = NGPRadianceField(
+        aabb=(-1.5,) * 3 + (1.5,) * 3, generator=torch.Generator()
+        .manual_seed(5), device=cuda_device)
+    # a denser field than the initial tables give, so the cull cuts
+    table = field.encoder.table
+    with torch.no_grad():
+        table.copy_(torch.rand(table.shape, generator=torch.Generator()
+                               .manual_seed(6)) * 4.0 - 2.0)
+    o, d, _, _ = _view_rays(40000, seed=24, device=cuda_device)
+    kw = dict(grid=grid, scene_aabb=(-1.5,) * 3 + (1.5,) * 3,
+              render_step_size=5e-3, max_samples_per_ray=1024,
+              coarse_stride=1, use_pallas=True, early_stop_eps=1e-4,
+              test_chunk_size=8192, eval_samples_per_ray=128,
+              visible_samples_budget=8192 * 64,
+              render_bkgd=torch.ones(3, device=cuda_device))
+    n5, n6 = march_dense.launches, fused_reselect.launches
+    with torch.no_grad():
+        got = render_image(field, o, d, **kw)
+    assert (march_dense.launches - n5, fused_reselect.launches - n6) == (5, 5)
+    plain = utils.march_rays
+
+    def chain(*args, **k):
+        return plain(*args, **dict(k, use_pallas=None))
+
+    monkeypatch.setattr(utils, "march_rays", chain)
+    with torch.no_grad():
+        want = render_image(field, o, d, **kw)
+    assert march_dense.launches - n5 == 5
+    assert fused_reselect.launches - n6 == 10
+    for name, a, b in zip(("colors", "opacities", "depths"), got, want):
+        assert torch.equal(a, b), name
+    assert float(got[1].max()) > 0.01
+
+
+@pytest.mark.cuda
+def test_march_dense_wrapper_refuses_what_the_kernel_does_not_take(
+        cuda_device):
+    import dataclasses
+
+    grid = _trained_grid(cuda_device)
+    o, d, t_min, t_max = _view_rays(256, seed=25, device=cuda_device)
+    kw = dict(k_slots=32, max_samples=256, step_size=5e-3)
+    with pytest.raises(ValueError):
+        march_dense(o, d.cpu(), t_min, t_max, grid, **kw)
+    with pytest.raises(ValueError):
+        march_dense(o, d, t_min.cpu(), t_max, grid, **kw)
+    with pytest.raises(TypeError):
+        march_dense(o, d.double(), t_min, t_max, grid, **kw)
+    with pytest.raises(ValueError):
+        march_dense(o.t().contiguous().t(), d, t_min, t_max, grid, **kw)
+    with pytest.raises(ValueError):
+        march_dense(o, d, t_min[:128], t_max, grid, **kw)
+    with pytest.raises(TypeError):
+        march_dense(o, d, t_min, t_max, dataclasses.replace(
+            grid, binary=grid.binary.to(torch.uint8)), **kw)
+    with pytest.raises(ValueError):
+        march_dense(o, d, t_min, t_max, dataclasses.replace(
+            grid, contraction_type=grid.contraction_type.UN_BOUNDED_TANH),
+            **kw)
+    with pytest.raises(ValueError):
+        march_dense(o, d, t_min, t_max, grid, k_slots=512, max_samples=256,
+                    step_size=5e-3)
 
 
 # The on-disk datasets: a fixture written on the card against the same
