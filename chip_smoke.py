@@ -2127,16 +2127,23 @@ def _trainer_kernels():
 @contextlib.contextmanager
 def recording(names):
     """An InputRecorder in place of each named kernel's wrapper (a name of
-    ``_trainer_kernels``) while the block runs; yields them by name."""
+    ``_trainer_kernels``) while the block runs; yields them by name. The
+    render's CUDA graphs are dropped on the way in and out, since a replay
+    calls no wrapper: the block's first render runs through the
+    recorders."""
+    from nerfacc_tpu_torch import graphs
+
     kernels = _trainer_kernels()
     recorders = {name: InputRecorder(*kernels[name][:2]) for name in names}
     for rec in recorders.values():
         setattr(rec.module, rec.attr, rec)
+    graphs.forget()
     try:
         yield recorders
     finally:
         for rec in recorders.values():
             setattr(rec.module, rec.attr, rec.wrapped)
+        graphs.forget()
 
 
 def _shape_label(args, kw) -> str:

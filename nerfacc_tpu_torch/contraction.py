@@ -12,7 +12,10 @@ from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
+
+from ._consts import constant
 
 
 class ContractionType(enum.Enum):
@@ -24,7 +27,11 @@ class ContractionType(enum.Enum):
 
 
 def _split_roi(roi, like: torch.Tensor):
-    roi = torch.as_tensor(roi, dtype=torch.float32, device=like.device)
+    if torch.is_tensor(roi):
+        roi = roi.to(device=like.device, dtype=torch.float32)
+    else:  # host numbers: one upload per device, not one a call
+        roi = constant(tuple(np.asarray(roi, np.float64).reshape(-1).tolist()),
+                       torch.float32, like.device)
     return roi[..., :3], roi[..., 3:]
 
 

@@ -15,6 +15,7 @@ from typing import Callable, Dict, Sequence, Tuple, Union
 import torch
 
 from . import tracing
+from ._consts import constant
 from .contraction import ContractionType, contract, contract_inv
 
 # dilation radii the marcher probes with (``probe_dilation``)
@@ -36,10 +37,12 @@ def dilate_binary(binary: torch.Tensor) -> torch.Tensor:
 
 def _cell_index(samples, roi, resolution, contraction_type) -> torch.Tensor:
     """Flat nearest-cell index of world-space points, clamped to the grid."""
-    res = torch.as_tensor(resolution, dtype=torch.int32, device=samples.device)
+    dev = samples.device
+    res = constant(tuple(float(r) for r in resolution), torch.float32, dev)
+    top = constant(tuple(int(r) - 1 for r in resolution), torch.int64, dev)
     unit = contract(samples, roi, contraction_type)
-    ixyz = torch.floor(unit * res.to(torch.float32)).to(torch.int64)
-    ixyz = torch.minimum(torch.clamp(ixyz, min=0), res.to(torch.int64) - 1)
+    ixyz = torch.floor(unit * res).to(torch.int64)
+    ixyz = torch.minimum(torch.clamp(ixyz, min=0), top)
     return (
         ixyz[..., 0] * (resolution[1] * resolution[2])
         + ixyz[..., 1] * resolution[2]
@@ -116,9 +119,8 @@ class OccupancyGrid:
         if self.contraction_type == ContractionType.AABB:
             lo, hi = self.roi_aabb[:3], self.roi_aabb[3:]
             if dilated:
-                res = torch.as_tensor(
-                    self.resolution, dtype=torch.float32, device=lo.device
-                )
+                res = constant(tuple(float(r) for r in self.resolution),
+                               torch.float32, lo.device)
                 margin = dilated * (hi - lo) / res
                 lo, hi = lo - margin, hi + margin
             inside = torch.all((samples >= lo) & (samples <= hi), dim=-1)
@@ -238,7 +240,8 @@ def _update_grid_at(
     binarize (at ``min(mean(occs), occ_thre)`` when ``adaptive_thre``)."""
     dev = grid.occs.device
     indices = indices.to(dev)
-    res = torch.as_tensor(grid.resolution, dtype=torch.float32, device=dev)
+    res = constant(tuple(float(r) for r in grid.resolution), torch.float32,
+                   dev)
     coords = _grid_coords(grid.resolution, indices).to(torch.float32)
     x_unit = (coords + jitter.to(dev, torch.float32)) / res
     if grid.contraction_type == ContractionType.UN_BOUNDED_SPHERE:
@@ -256,7 +259,7 @@ def _update_grid_at(
     occs = torch.where(sel, grid.occs * ema_decay, grid.occs)
     occs = occs.scatter_reduce(0, indices, occ, "amax")
 
-    thre = torch.tensor(occ_thre, dtype=torch.float32, device=dev)
+    thre = constant(float(occ_thre), torch.float32, dev)
     if adaptive_thre:
         thre = torch.minimum(torch.mean(occs), thre)
     binary = (occs > thre).reshape(grid.binary.shape)

@@ -4,7 +4,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from ._consts import constant
 
 MAX_DIST = 1e10
 
@@ -27,7 +30,11 @@ def ray_aabb_intersect(
     Returns:
         (t_min, t_max), each (n_rays,).
     """
-    aabb = torch.as_tensor(aabb, dtype=rays_o.dtype, device=rays_o.device)
+    if torch.is_tensor(aabb):
+        aabb = aabb.to(device=rays_o.device, dtype=rays_o.dtype)
+    else:  # host numbers: one upload per device, not one a call
+        aabb = constant(tuple(np.asarray(aabb, np.float64).reshape(-1)
+                              .tolist()), rays_o.dtype, rays_o.device)
     inv_d = 1.0 / rays_d
     t0 = (aabb[:3] - rays_o) * inv_d
     t1 = (aabb[3:] - rays_o) * inv_d

@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from .. import tracing
+from .._consts import constant
 
 
 class SinusoidalEncoder(nn.Module):
@@ -38,9 +39,9 @@ class SinusoidalEncoder(nn.Module):
         if self.max_deg == self.min_deg:
             return x
         with tracing.span("encoder"):
-            scales = torch.tensor(
-                [2.0**i for i in range(self.min_deg, self.max_deg)],
-                dtype=x.dtype, device=x.device,
+            scales = constant(
+                tuple(2.0**i for i in range(self.min_deg, self.max_deg)),
+                x.dtype, x.device,
             )
             xb = (x[..., None, :] * scales[:, None]).reshape(
                 x.shape[:-1] + ((self.max_deg - self.min_deg) * self.x_dim,)

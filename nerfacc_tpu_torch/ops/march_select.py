@@ -42,6 +42,7 @@ from typing import Tuple
 import torch
 
 from .. import _build, tracing
+from .._consts import constant
 from ..contraction import ContractionType
 from ..grid import OccupancyGrid
 from ..ray_marching import (
@@ -362,7 +363,8 @@ def march_dense_plain(
     dev = rays_o.device
     k_in = _in_range_count(t_min, t_max, step_size, cone_angle, dt_max, S)
     lo, hi = grid.roi_aabb[:3], grid.roi_aabb[3:]
-    res = torch.tensor(grid.resolution, dtype=torch.float32, device=dev)
+    res = constant(tuple(float(r) for r in grid.resolution), torch.float32,
+                   dev)
     _, ry, rz = grid.resolution
     table = grid.binary.reshape(-1)
 

@@ -27,6 +27,7 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ._consts import constant
 from .contraction import ContractionType
 from .grid import OccupancyGrid
 from .intersection import ray_aabb_intersect
@@ -75,12 +76,12 @@ class PackedSamples(NamedTuple):
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
     """``a / b`` as a true f32 division on every device (see module doc)."""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    return a / constant(float(b), a.dtype, a.device)
 
 
 def _rdiv(a: float, b: torch.Tensor) -> torch.Tensor:
     """``a / b`` for a float numerator, as a true f32 division."""
-    return torch.tensor(a, dtype=b.dtype, device=b.device) / b
+    return constant(float(a), b.dtype, b.device) / b
 
 
 def samples_needed_for_range(
@@ -534,9 +535,11 @@ def _resolve_t_range(
     cone_angle=None,
     dt_max=MAX_DIST,
     max_samples_per_ray=None,
+    jitter=None,
 ):
     """t-range priority: explicit > aabb intersect > [0, 1e10], then
-    near/far clamps and stratified jitter drawn from ``generator``."""
+    near/far clamps and stratified jitter: ``jitter`` where given, else
+    drawn from ``generator`` (:func:`stratify_jitter`)."""
     if max_samples_per_ray is not None and cone_angle is not None:
         _warn_if_lattice_starved(
             scene_aabb, near_plane, far_plane, render_step_size,
@@ -556,10 +559,18 @@ def _resolve_t_range(
     if far_plane is not None:
         t_max = torch.clamp(t_max, max=far_plane)
     if stratified:
-        u = torch.rand(t_min.shape, generator=generator,
-                       device=generator.device).to(t_min.device)
-        t_min = t_min + u * render_step_size
+        if jitter is None:
+            jitter = stratify_jitter(n_rays, generator, t_min.device)
+        t_min = t_min + jitter * render_step_size
     return t_min, t_max
+
+
+def stratify_jitter(n_rays: int, generator: torch.Generator,
+                    device) -> torch.Tensor:
+    """The stratified march's (n_rays,) uniforms in [0, 1), drawn on
+    ``generator``'s device and moved to ``device``."""
+    return torch.rand((n_rays,), generator=generator,
+                      device=generator.device).to(device)
 
 
 def ray_marching(

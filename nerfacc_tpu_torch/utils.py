@@ -12,6 +12,12 @@ With per-ray ``timestamps`` (n_rays, 1) the field is time-conditioned
 (the D-NeRF field): it is called as ``field(x, t, d)`` and
 ``field.query_density(x, t)``, each sample taking its ray's time.
 ``DynamicRayBucketer`` sizes a trainer's ray batches on the host.
+
+``render_rays`` runs as stages: the march, the two-stage render's density
+pass and cull, then the field query, the one-stage cull and the
+composite. On the card the stages that take no gradient (every stage with
+grad mode off) replay from CUDA graphs, one a span
+(:mod:`nerfacc_tpu_torch.graphs`); CPU tensors run them eagerly.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import tracing
+from . import graphs, tracing
 from .ops.sample_compact import compact_live_slots, expand_compact
 from .ray_marching import (
     _resolve_t_range,
@@ -29,6 +35,7 @@ from .ray_marching import (
     probe_live_groups,
     reselect_visible,
     select_slots,
+    stratify_jitter,
 )
 from .vol_rendering import (
     accumulate_along_rays_dense,
@@ -199,209 +206,288 @@ def render_rays(
     ``return_extras``); without ray compaction the selection is every ray.
     Rays left out render exactly ``render_bkgd``, so a full-batch loss
     follows algebraically (``training.compact_mse``).
+
+    On the card the stages that take no gradient, the march and the
+    two-stage render's density pass and cull (with grad mode off, every
+    stage), replay from CUDA graphs (:mod:`nerfacc_tpu_torch.graphs`);
+    the stratified jitter is drawn before them from ``key``, as the eager
+    path draws it. CPU tensors, and the stages that take gradients, run
+    eagerly.
     """
     n_rays = rays_o.shape[0]
     if stratified and key is None:
         raise ValueError("stratified=True requires a torch.Generator `key`.")
+    settings = dict(
+        scene_aabb=scene_aabb, near_plane=near_plane, far_plane=far_plane,
+        render_step_size=render_step_size, cone_angle=cone_angle,
+        alpha_thre=alpha_thre, early_stop_eps=early_stop_eps,
+        max_samples_per_ray=max_samples_per_ray,
+        samples_budget=samples_budget,
+        visible_samples_budget=visible_samples_budget,
+        coarse_stride=coarse_stride, probe_dilation=probe_dilation,
+        compact_rays_fraction=compact_rays_fraction,
+        field_samples_budget=field_samples_budget,
+        prefilter_sigma=prefilter_sigma, dt_max=dt_max,
+        return_extras=return_extras, exact_recheck=exact_recheck,
+        return_compact=return_compact, probe_groups=probe_groups,
+        use_pallas=use_pallas,
+    )
     with tracing.span("render"):
         tracing.count("rays", n_rays)
-        with tracing.span("march"):
-            with torch.no_grad():
-                t_min, t_max = _resolve_t_range(
-                    rays_o, rays_d, None, None, scene_aabb, near_plane,
-                    far_plane, stratified, key, render_step_size,
-                    cone_angle=cone_angle, dt_max=dt_max,
-                    max_samples_per_ray=max_samples_per_ray,
-                )
-            S = max_samples_per_ray
+        jitter = (stratify_jitter(n_rays, key, rays_o.device) if stratified
+                  else None)
+        inputs = (rays_o, rays_d, jitter, aux, timestamps, grid, settings)
+        if torch.is_grad_enabled():
+            state, replayed = graphs.run(_gradient_free_stages, field,
+                                         inputs)
+            out = _field_stages(field, state, render_bkgd, settings)
+        else:
+            out, replayed = graphs.run(_all_stages, field,
+                                       inputs + (render_bkgd,))
+        if replayed:
+            tracing.count("graph_rays", n_rays)
+    return out
 
-            live_groups = None
-            ray_sel = None  # (indices, valid) of compacted rays
-            n_out = n_rays
-            if (
-                compact_rays_fraction is not None
-                and grid is not None
-                and coarse_stride > 1
-            ):
-                live_g = probe_live_groups(
-                    rays_o, rays_d, t_min, t_max, grid,
-                    render_step_size=render_step_size,
-                    cone_angle=cone_angle, max_samples_per_ray=S,
-                    coarse_stride=coarse_stride, dt_max=dt_max,
-                    probe_dilation=probe_dilation, probe_groups=probe_groups,
-                )
-                hit = live_g.sum(dim=1) > 0
-                H = max(1, int(round(n_rays * compact_rays_fraction)))
-                # the first H hit rays; slots past the last hit point at
-                # the last ray and are invalid
-                posr, okr, _ = select_slots(hit[None, :], H, decimate=False)
-                # int32 as the JAX package returns it; PyTorch's row
-                # gathers and index_copy_ take int64, cast where they index
-                ray_sel = (posr[0], okr[0])
-                if tracing.enabled():  # a reduction of its own
-                    tracing.count("rays_hit", okr[0].sum())
-                ridx = posr[0].long()
-                rays_o, rays_d = rays_o[ridx], rays_d[ridx]
-                t_min, t_max = t_min[ridx], t_max[ridx]
-                live_groups = live_g[ridx]
-                if timestamps is not None:
-                    timestamps = timestamps[ridx]
-                if aux is not None:
-                    aux = aux.to(torch.float32)[ridx]
-                n_rays = H
-            else:
-                tracing.count("rays_hit", n_rays)
 
-            K = S if samples_budget is None else min(
-                S, max(1, -(-samples_budget // n_rays))
+def _gradient_free_stages(field, rays_o, rays_d, jitter, aux, timestamps,
+                          grid, o):
+    """The stages that take no gradient: the march, and for the two-stage
+    render the density pass and the cull. Returns the state
+    :func:`_field_stages` takes."""
+    state, march_live = _march(rays_o, rays_d, jitter, aux, timestamps,
+                               grid, o)
+    if o["prefilter_sigma"] and o["visible_samples_budget"] is not None:
+        state = _density_pass_and_cull(field, state, march_live, o)
+    return state
+
+
+def _all_stages(field, rays_o, rays_d, jitter, aux, timestamps, grid, o,
+                render_bkgd):
+    """Every stage, for a render with grad mode off."""
+    state = _gradient_free_stages(field, rays_o, rays_d, jitter, aux,
+                                  timestamps, grid, o)
+    return _field_stages(field, state, render_bkgd, o)
+
+
+def _march(rays_o, rays_d, jitter, aux, timestamps, grid, o):
+    """The t-range, the probes and the ray compaction, and the march.
+    Returns the state (the rays marched, their slots, the selection) and
+    the march's live-slot count where the field has no budget to count
+    them (else None)."""
+    n_rays = n_out = rays_o.shape[0]
+    S, step = o["max_samples_per_ray"], o["render_step_size"]
+    coarse_stride, probe_groups = o["coarse_stride"], o["probe_groups"]
+    with tracing.span("march"):
+        with torch.no_grad():
+            t_min, t_max = _resolve_t_range(
+                rays_o, rays_d, None, None, o["scene_aabb"], o["near_plane"],
+                o["far_plane"], jitter is not None, None, step,
+                cone_angle=o["cone_angle"], dt_max=o["dt_max"],
+                max_samples_per_ray=S, jitter=jitter,
             )
-            segs = march_rays(
+
+        live_groups = None
+        ray_sel = None  # (indices, valid) of compacted rays
+        if (
+            o["compact_rays_fraction"] is not None
+            and grid is not None
+            and coarse_stride > 1
+        ):
+            live_g = probe_live_groups(
                 rays_o, rays_d, t_min, t_max, grid,
-                render_step_size=render_step_size,
-                cone_angle=cone_angle,
-                max_samples_per_ray=S,
-                slots_per_ray=K,
-                coarse_stride=coarse_stride if grid is not None else 1,
-                dt_max=dt_max,
-                live_groups=live_groups,
-                probe_dilation=probe_dilation,
-                exact_recheck=exact_recheck,
+                render_step_size=step, cone_angle=o["cone_angle"],
+                max_samples_per_ray=S, coarse_stride=coarse_stride,
+                dt_max=o["dt_max"], probe_dilation=o["probe_dilation"],
                 probe_groups=probe_groups,
-                use_pallas=use_pallas,
             )
-            if ray_sel is not None:
-                segs = segs._replace(masks=segs.masks & ray_sel[1][:, None])
-            # the march's live slots: a compaction of the field counts
-            # them; without one, a reduction of their own
-            march_live = None
-            if field_samples_budget is None and tracing.enabled():
-                march_live = segs.masks.sum()
-                tracing.count("march_live", march_live)
+            hit = live_g.sum(dim=1) > 0
+            H = max(1, int(round(n_rays * o["compact_rays_fraction"])))
+            # the first H hit rays; slots past the last hit point at
+            # the last ray and are invalid
+            posr, okr, _ = select_slots(hit[None, :], H, decimate=False)
+            # int32 as the JAX package returns it; PyTorch's row
+            # gathers and index_copy_ take int64, cast where they index
+            ray_sel = (posr[0], okr[0])
+            tracing.count("rays_hit", tracing.Reduction(torch.sum, okr[0]))
+            ridx = posr[0].long()
+            rays_o, rays_d = rays_o[ridx], rays_d[ridx]
+            t_min, t_max = t_min[ridx], t_max[ridx]
+            live_groups = live_g[ridx]
+            if timestamps is not None:
+                timestamps = timestamps[ridx]
+            if aux is not None:
+                aux = aux.to(torch.float32)[ridx]
+            n_rays = H
+        else:
+            tracing.count("rays_hit", n_rays)
 
-        two_stage = prefilter_sigma and visible_samples_budget is not None
-        if two_stage:
-            # stage 1: a density pass without gradients -> visibility cull
-            # -> re-selection into the smaller visible budget
-            with torch.no_grad():
-                with tracing.span("density_pass"):
-                    if field_samples_budget is not None:
-                        tracing.count("density_rows", min(
-                            field_samples_budget, segs.masks.numel()))
-                        sigmas, keep1, _ = _compact_field_query(
-                            field, rays_o, rays_d, segs.t_starts,
-                            segs.t_ends, segs.masks, field_samples_budget,
-                            timestamps=timestamps, density_only=True,
-                            counters=("march_live", "density_live"),
-                        )
-                        segs = segs._replace(masks=keep1)
-                    else:
-                        tracing.count("density_rows", segs.masks.numel())
-                        if march_live is not None:
-                            tracing.count("density_live", march_live)
-                        x = _dense_positions(
-                            rays_o, rays_d, segs.t_starts, segs.t_ends
-                        )
-                        sigmas = _dense_field_query(
-                            field, x, timestamps=timestamps,
-                            density_only=True,
-                        )
-                with tracing.span("cull"):
-                    alphas = 1.0 - torch.exp(-sigmas * segs.deltas)
-                    vis = render_visibility_dense(
-                        alphas, segs.masks,
-                        early_stop_eps=early_stop_eps, alpha_thre=alpha_thre,
-                    )
-                    K2 = min(K, max(1, -(-visible_samples_budget // n_rays)))
-                    segs = reselect_visible(
-                        segs._replace(masks=segs.masks & vis), K2,
-                        use_pallas=use_pallas,
-                    )
+        samples_budget = o["samples_budget"]
+        K = S if samples_budget is None else min(
+            S, max(1, -(-samples_budget // n_rays))
+        )
+        segs = march_rays(
+            rays_o, rays_d, t_min, t_max, grid,
+            render_step_size=step,
+            cone_angle=o["cone_angle"],
+            max_samples_per_ray=S,
+            slots_per_ray=K,
+            coarse_stride=coarse_stride if grid is not None else 1,
+            dt_max=o["dt_max"],
+            live_groups=live_groups,
+            probe_dilation=o["probe_dilation"],
+            exact_recheck=o["exact_recheck"],
+            probe_groups=probe_groups,
+            use_pallas=o["use_pallas"],
+        )
+        if ray_sel is not None:
+            segs = segs._replace(masks=segs.masks & ray_sel[1][:, None])
+        # the march's live slots: a compaction of the field counts
+        # them; without one, a reduction of their own
+        march_live = None
+        if o["field_samples_budget"] is None:
+            march_live = tracing.Reduction(torch.sum, segs.masks)
+            tracing.count("march_live", march_live)
+    state = dict(rays_o=rays_o, rays_d=rays_d, segs=segs, ray_sel=ray_sel,
+                 aux=aux, timestamps=timestamps, n_rays=n_rays, n_out=n_out)
+    return state, march_live
 
-        t_starts, t_ends, deltas = segs.t_starts, segs.t_ends, segs.deltas
-        with tracing.span("field"):
-            if field_samples_budget is not None:
-                tracing.count("field_rows", min(field_samples_budget,
-                                                segs.masks.numel()))
-                rgbs, sigmas, masks, field_dropped = _compact_field_query(
-                    field, rays_o, rays_d, t_starts, t_ends, segs.masks,
-                    field_samples_budget, timestamps=timestamps,
-                    counters=(None if two_stage else "march_live", None),
+
+def _density_pass_and_cull(field, state, march_live, o):
+    """Stage 1 of the two-stage render, without gradients: a density pass,
+    the visibility cull, and the re-selection into the visible budget."""
+    rays_o, rays_d = state["rays_o"], state["rays_d"]
+    segs, timestamps = state["segs"], state["timestamps"]
+    budget = o["field_samples_budget"]
+    with torch.no_grad():
+        with tracing.span("density_pass"):
+            if budget is not None:
+                tracing.count("density_rows",
+                              min(budget, segs.masks.numel()))
+                sigmas, keep1, _ = _compact_field_query(
+                    field, rays_o, rays_d, segs.t_starts, segs.t_ends,
+                    segs.masks, budget, timestamps=timestamps,
+                    density_only=True,
+                    counters=("march_live", "density_live"),
                 )
-                tracing.count("field_budget_dropped", field_dropped)
+                segs = segs._replace(masks=keep1)
             else:
-                tracing.count("field_rows", segs.masks.numel())
-                x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
-                rgbs, sigmas = _dense_field_query(
-                    field, x, rays_d=rays_d, timestamps=timestamps
+                tracing.count("density_rows", segs.masks.numel())
+                tracing.count("density_live", march_live)
+                x = _dense_positions(rays_o, rays_d, segs.t_starts,
+                                     segs.t_ends)
+                sigmas = _dense_field_query(
+                    field, x, timestamps=timestamps, density_only=True,
                 )
-                masks = segs.masks
-                field_dropped = torch.zeros(
-                    (), dtype=torch.int32, device=masks.device
-                )
-        if prefilter_sigma and not two_stage:
-            # one field pass: the cull only refines the composite's mask
-            with tracing.span("cull"):
-                alphas = 1.0 - torch.exp(-sigmas.detach() * deltas)
-                masks = masks & render_visibility_dense(
-                    alphas, masks, early_stop_eps=early_stop_eps,
-                    alpha_thre=alpha_thre,
-                )
-        with tracing.span("composite"):
-            weights = render_weight_from_density_dense(
-                t_starts, t_starts + deltas, sigmas, masks=masks
+        with tracing.span("cull"):
+            alphas = 1.0 - torch.exp(-sigmas * segs.deltas)
+            vis = render_visibility_dense(
+                alphas, segs.masks, early_stop_eps=o["early_stop_eps"],
+                alpha_thre=o["alpha_thre"],
             )
-            colors = accumulate_along_rays_dense(
-                weights, values=rgbs, masks=masks)
-            opacities = accumulate_along_rays_dense(weights, masks=masks)
-            t_mid = (t_starts + t_ends) * 0.5
-            depths = accumulate_along_rays_dense(
-                weights, values=t_mid[..., None], masks=masks
+            K2 = min(segs.slots_per_ray, max(
+                1, -(-o["visible_samples_budget"] // state["n_rays"])))
+            segs = reselect_visible(
+                segs._replace(masks=segs.masks & vis), K2,
+                use_pallas=o["use_pallas"],
             )
-            if render_bkgd is not None:
-                colors = colors + render_bkgd * (1.0 - opacities)
-            n_samples = masks.sum()
-            tracing.count("field_live", n_samples)
-            extras = None
-            if return_extras:
-                extras = {
-                    "weights": weights, "t_starts": t_starts,
-                    "t_ends": t_ends, "deltas": deltas, "masks": masks,
-                    "field_budget_dropped": field_dropped,
-                }
+    return dict(state, segs=segs)
 
-            if return_compact:
-                ridx, ray_ok = ray_sel if ray_sel is not None else (
-                    torch.arange(n_rays, dtype=torch.int32,
-                                 device=masks.device),
-                    torch.ones((n_rays,), dtype=torch.bool,
-                               device=masks.device),
-                )
-                sel = {"ray_indices": ridx, "ray_ok": ray_ok, "aux": aux}
-                if return_extras:
-                    sel["extras"] = extras
-                return colors, opacities, depths, n_samples, sel
 
-            if ray_sel is not None:
-                # expand back to the full batch: rays without live samples
-                # render pure background with zero opacity and depth.
-                # Invalid selection slots write into an extra drop row, cut
-                # off after, so no real row is written by them
-                ridx, ray_ok = ray_sel
-                dest = torch.where(
-                    ray_ok, ridx, torch.full_like(ridx, n_out)).long()
+def _field_stages(field, state, render_bkgd, o):
+    """The field query, the one-stage render's cull and the composite:
+    ``render_rays``' outputs from the state the march left."""
+    rays_o, rays_d, segs = state["rays_o"], state["rays_d"], state["segs"]
+    timestamps, ray_sel = state["timestamps"], state["ray_sel"]
+    n_rays, n_out = state["n_rays"], state["n_out"]
+    budget = o["field_samples_budget"]
+    prefilter_sigma = o["prefilter_sigma"]
+    two_stage = prefilter_sigma and o["visible_samples_budget"] is not None
+    t_starts, t_ends, deltas = segs.t_starts, segs.t_ends, segs.deltas
+    with tracing.span("field"):
+        if budget is not None:
+            tracing.count("field_rows", min(budget, segs.masks.numel()))
+            rgbs, sigmas, masks, field_dropped = _compact_field_query(
+                field, rays_o, rays_d, t_starts, t_ends, segs.masks,
+                budget, timestamps=timestamps,
+                counters=(None if two_stage else "march_live", None),
+            )
+            tracing.count("field_budget_dropped", field_dropped)
+        else:
+            tracing.count("field_rows", segs.masks.numel())
+            x = _dense_positions(rays_o, rays_d, t_starts, t_ends)
+            rgbs, sigmas = _dense_field_query(
+                field, x, rays_d=rays_d, timestamps=timestamps
+            )
+            masks = segs.masks
+            field_dropped = torch.zeros(
+                (), dtype=torch.int32, device=masks.device
+            )
+    if prefilter_sigma and not two_stage:
+        # one field pass: the cull only refines the composite's mask
+        with tracing.span("cull"):
+            alphas = 1.0 - torch.exp(-sigmas.detach() * deltas)
+            masks = masks & render_visibility_dense(
+                alphas, masks, early_stop_eps=o["early_stop_eps"],
+                alpha_thre=o["alpha_thre"],
+            )
+    with tracing.span("composite"):
+        weights = render_weight_from_density_dense(
+            t_starts, t_starts + deltas, sigmas, masks=masks
+        )
+        colors = accumulate_along_rays_dense(
+            weights, values=rgbs, masks=masks)
+        opacities = accumulate_along_rays_dense(weights, masks=masks)
+        t_mid = (t_starts + t_ends) * 0.5
+        depths = accumulate_along_rays_dense(
+            weights, values=t_mid[..., None], masks=masks
+        )
+        if render_bkgd is not None:
+            colors = colors + render_bkgd * (1.0 - opacities)
+        n_samples = masks.sum()
+        tracing.count("field_live", n_samples)
+        extras = None
+        if o["return_extras"]:
+            extras = {
+                "weights": weights, "t_starts": t_starts,
+                "t_ends": t_ends, "deltas": deltas, "masks": masks,
+                "field_budget_dropped": field_dropped,
+            }
 
-                def expand(vals, fill):
-                    fill = torch.as_tensor(fill, dtype=vals.dtype,
-                                           device=vals.device)
-                    buf = torch.broadcast_to(
-                        fill, (n_out + 1,) + vals.shape[1:])
-                    return buf.clone().index_copy_(0, dest, vals)[:n_out]
+        if o["return_compact"]:
+            ridx, ray_ok = ray_sel if ray_sel is not None else (
+                torch.arange(n_rays, dtype=torch.int32,
+                             device=masks.device),
+                torch.ones((n_rays,), dtype=torch.bool,
+                           device=masks.device),
+            )
+            sel = {"ray_indices": ridx, "ray_ok": ray_ok,
+                   "aux": state["aux"]}
+            if extras is not None:
+                sel["extras"] = extras
+            return colors, opacities, depths, n_samples, sel
 
-                colors = expand(
-                    colors, 0.0 if render_bkgd is None else render_bkgd)
-                opacities = expand(opacities, 0.0)
-                depths = expand(depths, 0.0)
-    if return_extras:
+        if ray_sel is not None:
+            # expand back to the full batch: rays without live samples
+            # render pure background with zero opacity and depth.
+            # Invalid selection slots write into an extra drop row, cut
+            # off after, so no real row is written by them
+            ridx, ray_ok = ray_sel
+            dest = torch.where(
+                ray_ok, ridx, torch.full_like(ridx, n_out)).long()
+
+            def expand(vals, fill):
+                buf = vals.new_empty((n_out + 1,) + vals.shape[1:])
+                if torch.is_tensor(fill):
+                    buf.copy_(torch.broadcast_to(fill, buf.shape))
+                else:
+                    buf.fill_(fill)
+                return buf.index_copy_(0, dest, vals)[:n_out]
+
+            colors = expand(
+                colors, 0.0 if render_bkgd is None else render_bkgd)
+            opacities = expand(opacities, 0.0)
+            depths = expand(depths, 0.0)
+    if extras is not None:
         return colors, opacities, depths, n_samples, extras
     return colors, opacities, depths, n_samples
 

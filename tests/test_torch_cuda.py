@@ -39,8 +39,19 @@ another order), its table gradient within 1e-5 of the largest entry of
 the plain path's (both add in atomic order). The exact stride-1 march's
 kernel (``march_dense``): starts, ends, widths and masks bit-equal to
 ``march_rays``' plain chain, and a view rendered through it equal to one
-rendered through the chain, colour for colour.
+rendered through the chain, colour for colour. The CUDA graphs of the
+render's gradient-free stages (``nerfacc_tpu_torch.graphs``), at the
+benchmark cells' settings: a view's colours, opacities and depths
+bit-equal to the eager path's; the NGP step, eager and graphed from one
+state each step, losses, live samples, grid and heads bit-equal, the
+table's gradient within its atomic-order bound; the vanilla step
+bit-equal over five steps; the counters under the profiler equal; no
+synchronisation under ``set_sync_debug_mode("error")``; a field that
+reads the host falls back; a view under ``torch.inference_mode`` runs
+eagerly.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -1306,7 +1317,7 @@ def test_render_image_through_the_march_kernel_is_exact(cuda_device,
     # a 200 x 200 view at the view cell's settings through the kernel,
     # against the same view with the plain chain in the march and K6 in
     # the cull in both: the same slots, so the same colours
-    from nerfacc_tpu_torch import render_image, utils
+    from nerfacc_tpu_torch import graphs, render_image, utils
 
     grid = _trained_grid(cuda_device)
     field = NGPRadianceField(
@@ -1334,6 +1345,7 @@ def test_render_image_through_the_march_kernel_is_exact(cuda_device,
         return plain(*args, **dict(k, use_pallas=None))
 
     monkeypatch.setattr(utils, "march_rays", chain)
+    graphs.forget(field)  # its graphs hold the kernel's march
     with torch.no_grad():
         want = render_image(field, o, d, **kw)
     assert march_dense.launches - n5 == 5
@@ -1688,3 +1700,359 @@ def test_per_level_gather_equals_packed_on_card(cuda_device, pallas_grad,
     scale = float(grads[0].abs().max())
     assert scale > 0
     assert float((grads[1] - grads[0]).abs().max()) <= GRAD_REL * scale
+
+
+# ------------------------------------------------- CUDA graphs of the render
+
+NGP_AABB = (-1.5,) * 3 + (1.5,) * 3
+# the benchmark's cells: the view, the NGP step, the vanilla step
+GRAPH_VIEW_KW = dict(
+    scene_aabb=NGP_AABB, render_step_size=5e-3, max_samples_per_ray=1024,
+    coarse_stride=1, use_pallas=True, early_stop_eps=1e-4,
+    test_chunk_size=8192, eval_samples_per_ray=128,
+    eval_visible_samples_per_ray=64, visible_samples_budget=8192 * 64)
+GRAPH_NGP_KW = dict(
+    scene_aabb=NGP_AABB, render_step_size=5e-3, max_samples_per_ray=1024,
+    samples_budget=1 << 20, visible_samples_budget=1 << 19,
+    field_samples_budget=1 << 19, coarse_stride=16, probe_groups=64,
+    probe_dilation=2, use_pallas=True, early_stop_eps=1e-4,
+    stratified=True)
+GRAPH_VANILLA_KW = dict(
+    scene_aabb=NGP_AABB, render_step_size=5e-3, max_samples_per_ray=1024,
+    samples_budget=131072, early_stop_eps=1e-4, stratified=True)
+
+
+@contextlib.contextmanager
+def _graphs_off(monkeypatch):
+    """A context in which every call takes the eager path."""
+    from nerfacc_tpu_torch import graphs
+
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "_device", lambda leaves: None)
+        yield
+
+
+def _dense_ngp(device, seed=5):
+    """The NGP cell's field, with tables denser than their initial draw
+    gives, so that the cull cuts."""
+    field = NGPRadianceField(aabb=NGP_AABB, pallas_grad=True,
+                             generator=torch.Generator().manual_seed(seed),
+                             device=device)
+    table = field.encoder.table
+    with torch.no_grad():
+        table.copy_(torch.rand(table.shape, generator=torch.Generator()
+                               .manual_seed(seed + 1)) * 4.0 - 2.0)
+    return field
+
+
+def _batches(n_steps, n_rays, seed, device):
+    out = []
+    for i in range(n_steps):
+        o, d, _, _ = _view_rays(n_rays, seed=seed + i, device=device)
+        px = torch.rand((n_rays, 3), generator=torch.Generator()
+                        .manual_seed(seed + i)).to(device)
+        out.append((o, d, px))
+    return out
+
+
+class _Trainee:
+    """One field's training state as the benchmark's train cell keeps it:
+    Adam, the grid, the stratify and grid generators, a restore."""
+
+    def __init__(self, field, grid0, seed, lr, eps):
+        self.field, self.grid0, self.seed = field, grid0, seed
+        self.w0 = [p.detach().clone() for p in field.parameters()]
+        self.opt = torch.optim.Adam(field.parameters(), lr=lr, eps=eps)
+        dev = grid0.binary.device
+        self.gens = (torch.Generator(device=dev), torch.Generator(device=dev))
+        self.restore()
+
+    def restore(self):
+        with torch.no_grad():
+            for p, w in zip(self.field.parameters(), self.w0):
+                p.copy_(w)
+        for state in self.opt.state.values():
+            for v in state.values():
+                v.zero_()
+        self.grid = self.grid0
+        self.gens[0].manual_seed(self.seed)
+        self.gens[1].manual_seed(self.seed + 1)
+
+    def step(self, i, batch, kw):
+        from nerfacc_tpu_torch import update_grid
+
+        if i % 16 == 0:
+            self.grid = update_grid(
+                self.grid, self.gens[1], step=256 + i,
+                occ_eval_fn=lambda x: self.field.query_opacity(x, 5e-3),
+                occ_thre=0.01, ema_decay=0.95)
+        loss, n = train_step(self.field, self.opt, self.grid, *batch,
+                             key=self.gens[0], **kw)
+        return loss, n, [p.grad.clone() for p in self.field.parameters()]
+
+    def take(self, other):
+        """Take ``other``'s weights, Adam state and generators."""
+        with torch.no_grad():
+            for p, q in zip(self.field.parameters(),
+                            other.field.parameters()):
+                p.copy_(q)
+                for k, v in self.opt.state[p].items():
+                    v.copy_(other.opt.state[q][k])
+        for g, h in zip(self.gens, other.gens):
+            g.set_state(h.get_state())
+
+
+@pytest.mark.cuda
+def test_graphed_view_is_bit_equal_to_eager(cuda_device, monkeypatch):
+    # 200 x 200 views at the view cell's settings (five chunks of 8,192,
+    # the last padded): the first view captures, the others replay, each
+    # on new rays; every output bit-equal to the eager path's
+    from nerfacc_tpu_torch import _consts, graphs, render_image
+
+    monkeypatch.setattr(_consts, "_cache", {})  # as in a fresh process
+    grid = _trained_grid(cuda_device)
+    field = _dense_ngp(cuda_device)
+    kw = dict(GRAPH_VIEW_KW, grid=grid,
+              render_bkgd=torch.ones(3, device=cuda_device))
+    views = [_view_rays(40000, seed=s, device=cuda_device)[:2]
+             for s in (31, 32, 31)]
+    n = graphs.stats["captures"]
+    with torch.no_grad():
+        got = [render_image(field, o, d, **kw) for o, d in views]
+        assert graphs.stats["captures"] == n + 1
+        with _graphs_off(monkeypatch):
+            want = [render_image(field, o, d, **kw) for o, d in views]
+    for g, w in zip(got, want):
+        for name, a, b in zip(("colors", "opacities", "depths"), g, w):
+            assert torch.equal(a, b), name
+    assert float(got[0][1].max()) > 0.01
+    assert not torch.equal(got[0][0], got[1][0])
+
+
+@pytest.mark.cuda
+def test_render_image_under_inference_mode_runs_eagerly(cuda_device,
+                                                        monkeypatch):
+    # a view under torch.inference_mode takes the eager path, and the same
+    # key under no_grad then captures and replays: all bit-equal
+    from nerfacc_tpu_torch import graphs, render_image
+
+    grid = _trained_grid(cuda_device)
+    field = _dense_ngp(cuda_device)
+    kw = dict(GRAPH_VIEW_KW, grid=grid,
+              render_bkgd=torch.ones(3, device=cuda_device))
+    o, d, _, _ = _view_rays(20000, seed=35, device=cuda_device)
+    with _graphs_off(monkeypatch), torch.no_grad():
+        want = render_image(field, o, d, **kw)
+    n = graphs.stats["captures"]
+    with torch.inference_mode():
+        got = [render_image(field, o, d, **kw)]
+    assert graphs.stats["captures"] == n
+    with torch.no_grad():
+        got += [render_image(field, o, d, **kw) for _ in range(2)]
+    assert graphs.stats["captures"] == n + 1
+    for g in got:
+        for name, a, b in zip(("colors", "opacities", "depths"), g, want):
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_graphed_ngp_steps_match_eager_step_for_step(cuda_device,
+                                                     monkeypatch):
+    # the NGP cell's step, 20 steps with grid updates at steps 0 and 16 and
+    # the cell's restore at step 10; each step eager and graphed from one
+    # state. Losses, live samples, the grid and the heads' gradients and
+    # weights bit-equal; the table's gradient within GRAD_REL of its
+    # largest entry (K7 adds in atomic order, so two eager steps differ
+    # as much), and its weights then within Adam's step of that
+    from nerfacc_tpu_torch import graphs
+
+    grid0 = _trained_grid(cuda_device)
+    runs = [_Trainee(_dense_ngp(cuda_device), grid0, 7, 1e-2, 1e-15)
+            for _ in range(2)]  # eager, graphed
+    batches = _batches(20, 32768, 40, cuda_device)
+    captures = None
+    for i, batch in enumerate(batches):
+        if i == 10:
+            for r in runs:
+                r.restore()
+        with _graphs_off(monkeypatch):
+            eager = runs[0].step(i, batch, GRAPH_NGP_KW)
+        graphed = runs[1].step(i, batch, GRAPH_NGP_KW)
+        if i == 0:
+            captures = graphs.stats["captures"]
+        assert torch.equal(eager[0], graphed[0]), i
+        assert torch.equal(eager[1], graphed[1]), i
+        assert torch.equal(runs[0].grid.occs, runs[1].grid.occs), i
+        for k, (a, b) in enumerate(zip(eager[2], graphed[2])):
+            if k == 0:  # encoder.table
+                scale = float(a.abs().max())
+                assert float((a - b).abs().max()) <= GRAD_REL * scale, i
+            else:
+                assert torch.equal(a, b), (i, k)
+        for k, (p, q) in enumerate(zip(runs[0].field.parameters(),
+                                       runs[1].field.parameters())):
+            if k:
+                assert torch.equal(p, q), (i, k)
+            else:
+                torch.testing.assert_close(p, q, rtol=0, atol=2e-2)
+        runs[0].take(runs[1])
+    # a new batch, a new grid, a restore: no new capture
+    assert graphs.stats["captures"] == captures
+    assert int(eager[1]) > 10000
+
+
+@pytest.mark.cuda
+def test_graphed_vanilla_steps_are_bit_equal_to_eager(cuda_device,
+                                                      monkeypatch):
+    # the vanilla cell's step (exact march, no kernel, no atomics): five
+    # steps from one start, a grid update at step 0, everything bit-equal
+    from nerfacc_tpu_torch import graphs
+
+    grid0 = _trained_grid(cuda_device)
+    fields = [VanillaNeRFRadianceField(
+        generator=torch.Generator().manual_seed(9), device=cuda_device)
+        for _ in range(2)]
+    runs = [_Trainee(f, grid0, 11, 5e-4, 1e-8) for f in fields]
+    batches = _batches(5, 2048, 60, cuda_device)
+    n = graphs.stats["captures"]
+    outs = []
+    for k, r in enumerate(runs):
+        ctx = _graphs_off(monkeypatch) if k == 0 else contextlib.nullcontext()
+        with ctx:
+            outs.append([r.step(i, b, GRAPH_VANILLA_KW)
+                         for i, b in enumerate(batches)])
+    assert graphs.stats["captures"] == n + 1
+    for i, (a, b) in enumerate(zip(*outs)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), i
+        for g, h in zip(a[2], b[2]):
+            assert torch.equal(g, h), i
+    for p, q in zip(*(f.parameters() for f in fields)):
+        assert torch.equal(p, q)
+
+
+def _counters(fn):
+    from nerfacc_tpu_torch import tracing
+
+    tracing.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    counts = tracing.snapshot()
+    tracing.reset()
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["ngp_step", "vanilla_step", "view"])
+def test_graphed_counters_equal_eager_under_the_profiler(cuda_device,
+                                                         monkeypatch, cell):
+    from nerfacc_tpu_torch import render_image
+
+    grid0 = _trained_grid(cuda_device)
+    if cell == "view":
+        field = _dense_ngp(cuda_device)
+        o, d, _, _ = _view_rays(40000, seed=33, device=cuda_device)
+        kw = dict(GRAPH_VIEW_KW, grid=grid0,
+                  render_bkgd=torch.ones(3, device=cuda_device))
+
+        def run():
+            with torch.no_grad():
+                render_image(field, o, d, **kw)
+
+        run()  # the capture, outside the profiler
+        with _graphs_off(monkeypatch):
+            eager = _counters(run)
+        graphed = _counters(run)
+    else:
+        ngp = cell == "ngp_step"
+        runs = [_Trainee(_dense_ngp(cuda_device) if ngp else
+                         VanillaNeRFRadianceField(
+                             generator=torch.Generator().manual_seed(9),
+                             device=cuda_device),
+                         grid0, 13, 1e-2, 1e-15) for _ in range(2)]
+        kw = GRAPH_NGP_KW if ngp else GRAPH_VANILLA_KW
+        batches = _batches(2, 32768 if ngp else 2048, 70, cuda_device)
+        runs[1].step(0, batches[0], kw)  # the capture, outside the profiler
+        runs[0].take(runs[1])
+        runs[0].grid = runs[1].grid
+        with _graphs_off(monkeypatch):
+            eager = _counters(lambda: runs[0].step(1, batches[1], kw))
+        graphed = _counters(lambda: runs[1].step(1, batches[1], kw))
+    assert graphed.pop("graph_rays") == eager["rays"]
+    assert graphed.pop("graph_captures") == 0
+    assert graphed.pop("graph_fallbacks") == 0
+    assert graphed == eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graphed", [True, False])
+@pytest.mark.parametrize("setting", ["step", "view"])
+def test_render_rays_does_not_synchronise(cuda_device, monkeypatch, setting,
+                                          graphed):
+    # the cells' render_rays under set_sync_debug_mode("error"): the
+    # capture, the replays and the eager path, in a process whose
+    # constants are not made yet
+    from nerfacc_tpu_torch import _consts
+
+    monkeypatch.setattr(_consts, "_cache", {})
+    grid = _trained_grid(cuda_device)
+    field = _dense_ngp(cuda_device)
+    ctx = contextlib.nullcontext() if graphed else _graphs_off(monkeypatch)
+    with ctx:
+        for i, (o, d, px) in enumerate(_batches(
+                3, 32768 if setting == "step" else 8192, 80, cuda_device)):
+            gen = torch.Generator(device=cuda_device).manual_seed(i)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                if setting == "step":
+                    out = render_rays(
+                        field, o, d, grid=grid, key=gen, aux=px,
+                        return_compact=True,
+                        render_bkgd=torch.ones(3, device=cuda_device),
+                        **GRAPH_NGP_KW)
+                else:
+                    with torch.no_grad():  # a chunk of the view
+                        out = render_rays(
+                            field, o, d, grid=grid, scene_aabb=NGP_AABB,
+                            render_step_size=5e-3, max_samples_per_ray=1024,
+                            samples_budget=8192 * 128,
+                            visible_samples_budget=8192 * 64,
+                            use_pallas=True, early_stop_eps=1e-4,
+                            render_bkgd=torch.ones(3, device=cuda_device))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if setting == "step":
+                out[0].sum().backward()
+
+
+@pytest.mark.cuda
+def test_a_field_that_reads_the_host_falls_back_on_the_card(cuda_device,
+                                                             monkeypatch):
+    # a field whose density pass reads a value back: its warm-up
+    # synchronises, so the key stays eager, counted once, and the view
+    # equals the eager path's
+    from nerfacc_tpu_torch import graphs, render_image
+
+    class HostReading(NGPRadianceField):
+        def query_density(self, x, return_feat=False):
+            if float(x.abs().max()) < 0:  # a read back: a synchronisation
+                raise AssertionError("unreachable")
+            return super().query_density(x, return_feat)
+
+    field = HostReading(aabb=NGP_AABB, pallas_grad=True,
+                        generator=torch.Generator().manual_seed(5),
+                        device=cuda_device)
+    grid = _trained_grid(cuda_device)
+    o, d, _, _ = _view_rays(20000, seed=34, device=cuda_device)
+    kw = dict(GRAPH_VIEW_KW, grid=grid)
+    stats = dict(graphs.stats)
+    with torch.no_grad(), pytest.warns(RuntimeWarning, match="synchron"):
+        got = [render_image(field, o, d, **kw) for _ in range(2)]
+        with _graphs_off(monkeypatch):
+            want = render_image(field, o, d, **kw)
+    assert graphs.stats == dict(stats, fallbacks=stats["fallbacks"] + 1)
+    for g in got:
+        for a, b in zip(g, want):
+            assert torch.equal(a, b)
